@@ -1,0 +1,83 @@
+"""Synthetic scenes with known geometry — the port's copy of
+``look_at_camera`` and ``textured_plane_scene`` from
+``acmmp_tpu/utils/synth.py`` (numpy only). The scene is generated in memory
+with an analytic texture, so every view is photo-consistent by
+construction and PatchMatch must recover the exact plane depth."""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+from acmmp_tpu_torch.io.dense_folder import NumpyCamera
+
+
+def look_at_camera(eye, target, up=(0.0, 1.0, 0.0), f=120.0, width=64,
+                   height=48, depth_min=1.0, depth_max=20.0) -> NumpyCamera:
+    """Build a world->cam pinhole camera looking from `eye` at `target`.
+    Camera convention: +z forward, +x right, +y down (image coords)."""
+    eye = np.asarray(eye, dtype=np.float64)
+    target = np.asarray(target, dtype=np.float64)
+    fwd = target - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    upv = np.asarray(up, dtype=np.float64)
+    right = np.cross(fwd, upv)
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    R = np.stack([right, down, fwd], axis=0)
+    t = -R @ eye
+    K = np.array(
+        [[f, 0.0, (width - 1) / 2.0],
+         [0.0, f, (height - 1) / 2.0],
+         [0.0, 0.0, 1.0]]
+    )
+    return NumpyCamera(
+        K=K.astype(np.float32), R=R.astype(np.float32), t=t.astype(np.float32),
+        depth_min=depth_min, depth_max=depth_max, width=width, height=height,
+    )
+
+
+def textured_plane_scene(
+    n_views=3, width=64, height=48, plane_z=5.0, seed=0, f=120.0,
+    depth_min=2.0, depth_max=10.0,
+) -> Tuple[List[np.ndarray], List[NumpyCamera], float]:
+    """A fronto-parallel world plane z=plane_z with an analytic smooth random
+    texture, viewed by n_views cameras near the origin looking down +z.
+    Returns (images, cams, plane_z)."""
+    rng = np.random.default_rng(seed)
+    n_waves = 24
+    freqs = rng.uniform(0.3, 3.5, size=(n_waves, 2))
+    phases = rng.uniform(0, 2 * np.pi, size=n_waves)
+    amps = rng.uniform(0.3, 1.0, size=n_waves)
+
+    def texture(xw, yw):
+        val = np.zeros_like(xw)
+        for k in range(n_waves):
+            val += amps[k] * np.sin(freqs[k, 0] * xw + freqs[k, 1] * yw + phases[k])
+        val = val - val.min()
+        return 30.0 + 200.0 * val / max(val.max(), 1e-6)
+
+    cams: List[NumpyCamera] = []
+    images: List[np.ndarray] = []
+    offsets = np.linspace(-0.25, 0.25, n_views)
+    for i in range(n_views):
+        # distinct, small y offsets: no camera pair is exactly axis-aligned,
+        # so no source coordinate sits on a truncation tie across the image
+        eye = np.array([offsets[i], 0.013 * i + 0.004 * (i % 2), 0.0])
+        cam = look_at_camera(eye, eye + np.array([0.0, 0.0, 1.0]), f=f,
+                             width=width, height=height,
+                             depth_min=depth_min, depth_max=depth_max)
+        xs, ys = np.meshgrid(np.arange(width, dtype=np.float64),
+                             np.arange(height, dtype=np.float64))
+        dirs_cam = np.stack(
+            [(xs - cam.K[0, 2]) / cam.K[0, 0],
+             (ys - cam.K[1, 2]) / cam.K[1, 1],
+             np.ones_like(xs)], axis=-1)
+        dirs_world = dirs_cam @ cam.R
+        center = -cam.R.T @ cam.t
+        s = (plane_z - center[2]) / dirs_world[..., 2]
+        pw = center[None, None, :] + s[..., None] * dirs_world
+        images.append(texture(pw[..., 0], pw[..., 1]).astype(np.float32))
+        cams.append(cam)
+    return images, cams, plane_z

@@ -1,0 +1,119 @@
+"""acmmp_tpu_torch stands alone: it imports neither JAX nor the JAX
+package, asks for CUDA by default, and never computes silently on the CPU
+when the CUDA kernel is asked for. The CUDA-marked test runs only where a
+card is present (chip_smoke.py does the full comparison there)."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from acmmp_tpu_torch import runtime
+from acmmp_tpu_torch.config import PatchMatchParams
+from acmmp_tpu_torch.engine.inputs import build_solver_inputs
+from acmmp_tpu_torch.ops import cuda_ncc
+from acmmp_tpu_torch.ops import ncc as tncc
+from acmmp_tpu_torch.utils.synth import textured_plane_scene
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+import acmmp_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(acmmp_tpu_torch.__path__,
+                                               "acmmp_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "acmmp_tpu"
+             or m.startswith("acmmp_tpu."))
+print(len(names), bad)
+assert not bad, bad
+assert "acmmp_tpu_torch.ops.cuda_ncc" in sys.modules
+"""
+
+
+def test_package_imports_neither_jax_nor_acmmp_tpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_acmmp_tpu():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+            for a in n.names]
+    mods += [n.module for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and n.module]
+    assert "acmmp_tpu_torch.engine.patchmatch" in mods
+    assert not [m for m in mods if m.split(".")[0] in ("jax", "acmmp_tpu")]
+
+
+def _small_inputs():
+    images, cams, _ = textured_plane_scene(n_views=3, width=32, height=16)
+    return build_solver_inputs(images[0], images[1:], cams[0], cams[1:],
+                               PatchMatchParams(patch_size=3),
+                               device="cpu")
+
+
+def test_cuda_backend_on_cpu_tensors_raises():
+    inp = _small_inputs()
+    vg = tncc.make_view_geometry(inp.ref_cam, inp.src_cams)
+    planes = torch.zeros(inp.ref_img.shape + (4,))
+    planes[..., 2] = -1.0
+    planes[..., 3] = 5.0
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        tncc.multiview_zncc(inp.ref_img, inp.src_imgs, vg, planes,
+                            PatchMatchParams(ncc_backend="cuda"))
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        cuda_ncc.multiview_zncc_cuda(inp.ref_img, inp.src_imgs, vg,
+                                     planes[None], PatchMatchParams())
+    with pytest.raises(ValueError, match="ncc_backend"):
+        tncc.multiview_zncc(inp.ref_img, inp.src_imgs, vg, planes,
+                            PatchMatchParams(ncc_backend="pallas"))
+    # "auto" on CPU tensors is the plain version, and counts no launch
+    before = cuda_ncc.total_launches()
+    out = tncc.multiview_zncc(inp.ref_img, inp.src_imgs, vg, planes,
+                              PatchMatchParams(patch_size=3))
+    assert out.shape == inp.ref_img.shape + (2,)
+    assert cuda_ncc.total_launches() == before
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    assert runtime.DEFAULT_DEVICE == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        runtime.resolve_device()
+    assert runtime.resolve_device("cpu").type == "cpu"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    images, cams, _ = textured_plane_scene(n_views=4, width=128, height=32)
+    inp = build_solver_inputs(images[0], images[1:], cams[0], cams[1:],
+                              PatchMatchParams(), device="cuda")
+    vg = tncc.make_view_geometry(inp.ref_cam, inp.src_cams)
+    rng = np.random.default_rng(0)
+    d = torch.as_tensor(rng.uniform(4, 6, size=(3,) + inp.ref_img.shape),
+                        dtype=torch.float32, device="cuda")
+    planes = torch.zeros(d.shape + (4,), device="cuda")
+    planes[..., 2] = -1.0
+    planes[..., 3] = d
+    got = tncc.multiview_zncc(inp.ref_img, inp.src_imgs, vg, planes,
+                              PatchMatchParams(), n_views=3)
+    want = tncc.multiview_zncc(inp.ref_img, inp.src_imgs, vg, planes,
+                               PatchMatchParams(ncc_backend="plain"))
+    bad = (got - want).abs() > 2e-3 + 1e-3 * want.abs()
+    assert bad.float().mean().item() < 1e-3
