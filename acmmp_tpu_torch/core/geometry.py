@@ -80,6 +80,25 @@ def backproject(cam: Camera, x, y, depth) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(X, Y, depth), dim=-1)
 
 
+def cam_to_world(cam: Camera, X_cam: torch.Tensor) -> torch.Tensor:
+    """Camera-frame point -> world: R^T (X - t)
+    (Get3DPointonWorld_cu, ACMMP.cu:480-504)."""
+    return matvec(cam.R.transpose(-1, -2), X_cam - cam.t)
+
+
+def world_point(cam: Camera, x, y, depth) -> torch.Tensor:
+    return cam_to_world(cam, backproject(cam, x, y, depth))
+
+
+def project(cam: Camera, X_world: torch.Tensor):
+    """World point -> (pixel xy, depth)
+    (ProjectonCamera_cu, ACMMP.cu:506-516)."""
+    x_cam = matvec(cam.R, X_world) + cam.t
+    h = matvec(cam.K, x_cam)
+    depth = h[..., 2]
+    return h[..., :2] / depth[..., None], depth
+
+
 def view_direction(cam: Camera, x, y, depth=1.0) -> torch.Tensor:
     """Unit ray through pixel (GetViewDirection, ACMMP.cu:130-142)."""
     d = torch.as_tensor(depth, dtype=DTYPE, device=cam.K.device)
@@ -184,6 +203,32 @@ def bilinear_sample(img: torch.Tensor, x, y, width=None,
     v11 = img[..., y1, x1]
     return (v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy)
             + v10 * (1 - fx) * fy + v11 * fx * fy)
+
+
+def nearest_sample(img: torch.Tensor, x, y, width=None,
+                   height=None) -> torch.Tensor:
+    """Truncate-to-int read of `img` (..., H, W) at float coords, clamped
+    to the true bounds (the reference reads depth maps as
+    ``tex2D(depth, (int)x + 0.5, (int)y + 0.5)``, ACMMP.cu:528).
+    NaN reads index 0 and the clamp is taken in float before truncating
+    (pallas_geom.py:129-130): for finite coordinates that equals the JAX
+    package's truncate-then-clip, and no index is formed from a NaN or an
+    infinity, whose integer conversion torch and CUDA define differently."""
+    xi, yi = nearest_index(img, x, y, width, height)
+    return img[..., yi, xi]
+
+
+def nearest_index(img: torch.Tensor, x, y, width=None, height=None):
+    """The (column, row) int64 indices `nearest_sample` reads; `width` /
+    `height` may be tensors that broadcast against x / y."""
+    H, W = img.shape[-2], img.shape[-1]
+    w_max = torch.as_tensor(W if width is None else width, dtype=DTYPE,
+                            device=img.device) - 1.0
+    h_max = torch.as_tensor(H if height is None else height, dtype=DTYPE,
+                            device=img.device) - 1.0
+    xi = torch.minimum(torch.clamp(torch.nan_to_num(x), min=0.0), w_max)
+    yi = torch.minimum(torch.clamp(torch.nan_to_num(y), min=0.0), h_max)
+    return xi.long(), yi.long()
 
 
 def pixel_grid(height: int, width: int, device=None):

@@ -44,9 +44,21 @@ def build_solver_inputs(
     num_views_pad: Optional[int] = None,
     pad_h: int = 8,
     pad_w: int = 128,
+    src_depths: Optional[Sequence[np.ndarray]] = None,
+    init_depth: Optional[np.ndarray] = None,
+    init_normal_world: Optional[np.ndarray] = None,
+    init_cost: Optional[np.ndarray] = None,
+    prior_planes: Optional[np.ndarray] = None,
+    prior_mask: Optional[np.ndarray] = None,
+    seed_planes: Optional[np.ndarray] = None,
+    pre_costs: Optional[np.ndarray] = None,
     device=None,
 ) -> SolverInputs:
-    """Photometric-mode inputs on `device` (CUDA unless told otherwise)."""
+    """Inputs of one solve on `device` (CUDA unless told otherwise). The
+    optional maps are those of the JAX package's `build_solver_inputs`:
+    `src_depths` are edge-padded to the sources' shape, with zero maps for
+    padded view slots; the [H, W] fields are zero-padded, and `prior_mask`
+    is a bool."""
     dev = runtime.resolve_device(device)
     V = len(src_imgs)
     Vp = num_views_pad or V
@@ -79,6 +91,29 @@ def build_solver_inputs(
 
     f32 = lambda a: torch.as_tensor(np.array(a, np.float32),  # noqa: E731
                                     device=dev)
+
+    depths = None
+    if src_depths is not None:
+        dl = [pad_image_edge(np.asarray(d, np.float32), Hs, Ws)
+              for d in src_depths]
+        while len(dl) < Vp:
+            dl.append(np.zeros((Hs, Ws), np.float32))
+        depths = f32(np.stack(dl))
+
+    def _pad_hw(a):
+        if a is None:
+            return None
+        a = np.asarray(a, np.float32)
+        pad = ([(0, Hp - a.shape[0]), (0, Wp - a.shape[1])]
+               + [(0, 0)] * (a.ndim - 2))
+        return f32(np.pad(a, pad, mode="constant"))
+
+    pm = None
+    if prior_mask is not None:
+        m = np.zeros((Hp, Wp), bool)
+        m[:H, :W] = np.asarray(prior_mask, bool)
+        pm = torch.as_tensor(m, device=dev)
+
     return SolverInputs(
         ref_img=f32(ref_p),
         src_imgs=f32(np.stack(srcs)),
@@ -87,6 +122,14 @@ def build_solver_inputs(
         view_mask=torch.as_tensor(view_mask, device=dev),
         depth_min=f32(np.float32(ref_cam.depth_min * params.depth_min_relax)),
         depth_max=f32(np.float32(ref_cam.depth_max * params.depth_max_relax)),
+        src_depths=depths,
+        init_depth=_pad_hw(init_depth),
+        init_normal_world=_pad_hw(init_normal_world),
+        init_cost=_pad_hw(init_cost),
+        prior_planes=_pad_hw(prior_planes),
+        prior_mask=pm,
+        seed_planes=_pad_hw(seed_planes),
+        pre_costs=_pad_hw(pre_costs),
     )
 
 
@@ -98,10 +141,11 @@ def _camera(c, device) -> Camera:
 def solver_inputs_from_numpy(arrays, key_data, device=None):
     """(port SolverInputs, port Key) from the JAX package's SolverInputs
     after ``jax.tree.map(np.asarray, inputs)`` and a key's
-    ``jax.random.key_data`` words. Only the photometric fields are read."""
+    ``jax.random.key_data`` words. Every optional field is carried."""
     dev = runtime.resolve_device(device)
     f32 = lambda a: torch.as_tensor(np.array(a, np.float32),  # noqa: E731
                                     device=dev)
+    opt = lambda a: None if a is None else f32(a)               # noqa: E731
     inputs = SolverInputs(
         ref_img=f32(arrays.ref_img),
         src_imgs=f32(arrays.src_imgs),
@@ -111,5 +155,14 @@ def solver_inputs_from_numpy(arrays, key_data, device=None):
                                   device=dev),
         depth_min=f32(arrays.depth_min),
         depth_max=f32(arrays.depth_max),
+        src_depths=opt(arrays.src_depths),
+        init_depth=opt(arrays.init_depth),
+        init_normal_world=opt(arrays.init_normal_world),
+        init_cost=opt(arrays.init_cost),
+        prior_planes=opt(arrays.prior_planes),
+        prior_mask=(None if arrays.prior_mask is None else torch.as_tensor(
+            np.array(arrays.prior_mask, bool), device=dev)),
+        seed_planes=opt(arrays.seed_planes),
+        pre_costs=opt(arrays.pre_costs),
     )
     return inputs, keys.from_key_data(key_data)

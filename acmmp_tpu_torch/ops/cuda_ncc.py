@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from acmmp_tpu_torch.config import PatchMatchParams
+from acmmp_tpu_torch.kernels import check_arg, hypothesis_stack
 from acmmp_tpu_torch.ops import ncc as ncc_ops
 from acmmp_tpu_torch.ops import parity
 
@@ -121,19 +122,6 @@ def _lib():
     return fn
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"zncc kernel: {name} is on {t.device}, "
-                         f"expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"zncc kernel: {name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"zncc kernel: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"zncc kernel: {name} must be contiguous")
-
-
 def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
                         params: PatchMatchParams, origin=None,
                         row_pack_off=None, n_views=None,
@@ -141,18 +129,8 @@ def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
     """Per-view ZNCC costs through the kernel: planes [K, Hg, W, 4] (or
     [Hg, W, 4]) -> [K, Hg, W, V] (or [Hg, W, V]); Hg = H, or H // 2 with
     parity packing (`row_pack_off` = off0). `n_views` is a host int."""
-    if not planes.is_cuda:
-        raise RuntimeError("zncc kernel: planes must be a CUDA tensor "
-                           "(CPU tensors take ncc_backend='auto' or 'plain')")
-    squeeze = planes.ndim == 3
-    if squeeze:
-        planes = planes[None]
-    if planes.ndim != 4 or planes.shape[-1] != 4:
-        raise ValueError(f"zncc kernel: planes must be [K, Hg, W, 4], got "
-                         f"{tuple(planes.shape)}")
+    planes, squeeze = hypothesis_stack("zncc", planes, SUPPORTED_K)
     K = planes.shape[0]
-    if K not in SUPPORTED_K:
-        raise ValueError(f"zncc kernel: K={K} not in {SUPPORTED_K}")
     H, W = ref_img.shape
     V, Hs, Ws = src_imgs.shape
     Hg = H if row_pack_off is None else H // 2
@@ -166,14 +144,14 @@ def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
         raise ValueError(f"zncc kernel: prep is for row_pack_off="
                          f"{prep.row_pack_off}, call has {want_off}")
     T = prep.taps.shape[0]
-    _check("planes", planes, torch.float32, (K, Hg, W, 4), dev)
-    _check("src_u8", prep.src_u8, torch.uint8, (V, Hs, Ws), dev)
-    _check("consts", prep.consts, torch.float32,
-           (_HEADER + _VIEW_STRIDE * V,), dev)
-    _check("taps", prep.taps, torch.float32, (T, 2), dev)
-    _check("w_taps", prep.w_taps, torch.float32, (T, Hg, W), dev)
-    _check("wr_taps", prep.wr_taps, torch.float32, (T, Hg, W), dev)
-    _check("refsums", prep.refsums, torch.float32, (3, Hg, W), dev)
+    check_arg("zncc", "planes", planes, torch.float32, (K, Hg, W, 4), dev)
+    check_arg("zncc", "src_u8", prep.src_u8, torch.uint8, (V, Hs, Ws), dev)
+    check_arg("zncc", "consts", prep.consts, torch.float32,
+              (_HEADER + _VIEW_STRIDE * V,), dev)
+    check_arg("zncc", "taps", prep.taps, torch.float32, (T, 2), dev)
+    check_arg("zncc", "w_taps", prep.w_taps, torch.float32, (T, Hg, W), dev)
+    check_arg("zncc", "wr_taps", prep.wr_taps, torch.float32, (T, Hg, W), dev)
+    check_arg("zncc", "refsums", prep.refsums, torch.float32, (3, Hg, W), dev)
     if planes.data_ptr() % 16:
         raise ValueError("zncc kernel: planes must be 16-byte aligned")
     if K * Hg * W * V >= 2 ** 31 or V * Hs * Ws >= 2 ** 31:

@@ -224,8 +224,9 @@ def _zncc_grids(ref_center, tap_values, x, y, src_imgs, vg, planes, params):
 
 
 def _shift_edge(img: torch.Tensor, dj: int, di: int) -> torch.Tensor:
-    """img shifted so out[y, x] = img[clamp(y+dj), clamp(x+di)]."""
-    H, W = img.shape
+    """img [H, W, ...] shifted so out[y, x] = img[clamp(y+dj), clamp(x+di)]
+    (trailing channel axes are kept)."""
+    H, W = img.shape[:2]
     rows = torch.clamp(torch.arange(H, device=img.device) + dj, 0, H - 1)
     cols = torch.clamp(torch.arange(W, device=img.device) + di, 0, W - 1)
     return img[rows][:, cols]

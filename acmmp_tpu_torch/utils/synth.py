@@ -40,14 +40,16 @@ def look_at_camera(eye, target, up=(0.0, 1.0, 0.0), f=120.0, width=64,
 
 def textured_plane_scene(
     n_views=3, width=64, height=48, plane_z=5.0, seed=0, f=120.0,
-    depth_min=2.0, depth_max=10.0,
+    depth_min=2.0, depth_max=10.0, texture_scale=1.0,
 ) -> Tuple[List[np.ndarray], List[NumpyCamera], float]:
     """A fronto-parallel world plane z=plane_z with an analytic smooth random
     texture, viewed by n_views cameras near the origin looking down +z.
-    Returns (images, cams, plane_z)."""
+    `texture_scale` multiplies the texture's spatial frequencies (1: the
+    JAX package's scene); at a large focal length the default texture is
+    smooth across a whole patch. Returns (images, cams, plane_z)."""
     rng = np.random.default_rng(seed)
     n_waves = 24
-    freqs = rng.uniform(0.3, 3.5, size=(n_waves, 2))
+    freqs = texture_scale * rng.uniform(0.3, 3.5, size=(n_waves, 2))
     phases = rng.uniform(0, 2 * np.pi, size=n_waves)
     amps = rng.uniform(0.3, 1.0, size=n_waves)
 

@@ -10,15 +10,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      on the 320x240 / 4-source bench scene: K=1 on the full grid, K=8/3/2
      on the parity-packed grid, coherent and random planes under both
      random laws, a padded view slot, and K-stacks bitwise equal to K
-     separate K=1 launches; then again at the main path's own shapes
-     (1600x1184, 8 sources);
+     separate K=1 launches; then again at the main paths' own shapes
+     (1600x1184 and 800x592, 8 sources);
+  3c. hold the geometric-consistency kernel against its plain version on
+     a non-round rig at 320x240 / 4 sources (+1 padded slot), 800x592 and
+     1600x1184 / 8 sources: K=1 on the full grid, K=8 and K=5 packed at
+     both parities, off-plane and random planes, smooth depth maps and a
+     zeroed band;
   4. a full 320x240 solve through the kernel and through the plain
      version with the same key; report the depth agreement;
-  5. the main path: the 1600x1184 / 8-source photometric solve with the
+  5. the photometric main path: the 1600x1184 / 8-source solve with the
      shipping PatchMatchParams(), warm-up then timed; 13 kernel launches
      per solve; median interior depth error below 0.15;
-  6. per-launch kernel times at both shapes beside the plain version and
-     the bound, as one JSON line; then the card line and the result line.
+  6. per-launch kernel times at the main paths' shapes beside the plain
+     version and the bound;
+  7. ACMMP's per-view two-scale chain at full width: 9 views, each the
+     reference with the other 8 as sources, at 800x592 (photometric,
+     planar-prior second solve, two geometric passes), JBU to 1600x1184,
+     then hierarchy, hierarchy + planar prior and two geometric passes;
+     9 geom and 13 ZNCC launches per geometric solve; view 0's final
+     depth within the bars of tests/test_patchmatch.py (median < 0.15,
+     more than 85% under 0.5, at most 1.5x the error of a photometric
+     1600x1184 solve of the same view);
+then the kernel table as one JSON line, the card line and the result
+line.
 
 Imports nothing of JAX. Exits non-zero without a result when there is no
 CUDA device or when the acmmp_tpu_torch package is not beside it.
@@ -29,6 +44,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -50,6 +66,27 @@ PEAK_BYTES_PER_S = 3.35e12
 # csrc/zncc.cu, counting an FMA as two (see the tally in the source note)
 OPS_PER_TAP_EVAL = 40
 
+# geom bar of the JAX package's kernel tests (tests/test_pallas_geom.py):
+# fewer than 2e-3 of costs may differ by more than 1e-3 + 1e-3 |ref|
+GEOM_ATOL, GEOM_RTOL, GEOM_MAX_FRAC = 1e-3, 1e-3, 2e-3
+# FP32 operations of csrc/geom.cu per (hypothesis, view, pixel) and per
+# (view, pixel), from the tally in its source note
+GEOM_OPS_PER_EVAL = 141
+GEOM_OPS_PER_PIXEL_VIEW = 6
+GEOM_TPU_KERNEL = "acmmp_tpu/ops/pallas_geom.py:49"
+# the chain's bars on view 0's final depth, those of
+# tests/test_patchmatch.py::test_geometric_pass_refines: median interior
+# error, share under 0.5, and the ratio to a photometric solve of the same
+# view at the same scale
+CHAIN_MEDIAN_BAR, CHAIN_SHARE_BAR, CHAIN_RATIO_BAR = 0.15, 0.85, 1.5
+# the chain's scene: the texture's frequencies x 24, so that its shortest
+# wavelength is 22 px at 800x592 (f = 1500) and 45 px at 1600x1184 (f =
+# 3000), about a patch. At the default texture (shortest wavelength 540
+# and 1080 px) every patch is near-linear and a wrong depth costs less
+# than the right one (tools/torch_chain_quality.py), so no bar could tell
+# a right chain from a wrong one
+CHAIN_TEXTURE_SCALE = 24.0
+
 TPU_KERNEL = {1: "acmmp_tpu/ops/pallas_ncc.py:108",
               2: "acmmp_tpu/ops/pallas_ncc.py:542",
               3: "acmmp_tpu/ops/pallas_ncc.py:542",
@@ -68,6 +105,205 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
+def run_chain(scenes, dev, card):
+    """Phase 7: ACMMP's per-view two-scale chain as run_pipeline schedules
+    it (acmmp_tpu/pipeline/scheduler.py:724-765), with arrays in place of
+    the .dmb files. `scenes` maps (width, height) to a 9-view scene; each
+    view in turn is the reference and the other 8 its sources. The port
+    has no image resize yet, so the coarse scale is rendered directly at
+    800x592 (f = 1500; its principal point is (W-1)/2 of that size, a
+    quarter pixel from a resize of the 1600x1184 view). View 0's final
+    depth is held to the bars and to a photometric solve of view 0 at the
+    fine scale. Returns the chain's launch counts by kernel."""
+    import torch
+
+    from acmmp_tpu_torch.config import PatchMatchParams, PipelineConfig
+    from acmmp_tpu_torch.engine.inputs import build_solver_inputs
+    from acmmp_tpu_torch.engine.patchmatch import Mode, run_patchmatch
+    from acmmp_tpu_torch.engine.priors import build_planar_prior
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, keys
+    from acmmp_tpu_torch.ops.jbu import jbu_depth, jbu_normal_cost
+
+    params, cfg = PatchMatchParams(), PipelineConfig()
+    n_sweeps = 2 * params.max_iterations
+    want_zncc = {1: 1, 8: n_sweeps, 3: n_sweeps, 2: n_sweeps}
+    want_geom = {1: 1, 8: n_sweeps, 5: n_sweeps}
+    no_geom = {k: 0 for k in cuda_geom.SUPPORTED_K}
+    coarse, fine = sorted(scenes)
+    n_views = len(scenes[coarse][0])
+    label = {s: f"{s[0]}x{s[1]}" for s in scenes}
+    dev_ms, prior_s = {}, {coarse: 0.0, fine: 0.0}
+
+    def problem_key(rid, tag):
+        # scheduler.py:347-348
+        return keys.fold_in(keys.key(cfg.seed), rid * 131 + tag)
+
+    def solve(scale, i, mode, key, name, **maps):
+        images, cams, _ = scenes[scale]
+        src = [j for j in range(n_views) if j != i]
+        inputs = build_solver_inputs(
+            images[i], [images[j] for j in src], cams[i],
+            [cams[j] for j in src], params, device=dev, **maps)
+        z0, g0 = dict(cuda_ncc.launches), dict(cuda_geom.launches)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = run_patchmatch(inputs, key, params, mode)
+        b.record()
+        torch.cuda.synchronize()
+        dev_ms.setdefault(name, []).append(a.elapsed_time(b))
+        w, h = scale
+        for t in out:
+            # the true extent, which the pipeline keeps
+            assert torch.isfinite(t[:h, :w]).all(), (name, i)
+        if i == 0:
+            dz = {k: cuda_ncc.launches[k] - z0[k] for k in z0}
+            dg = {k: cuda_geom.launches[k] - g0[k] for k in g0}
+            med, share = interior_error(scale, out.depth[:h, :w])
+            log(f"  view 0 {name}: zncc launches {dz}, geom {dg}, "
+                f"{dev_ms[name][-1]:.1f} ms; median interior |depth - z| "
+                f"{med:.5f}, share < 0.5 {share:.4f}")
+            assert dz == want_zncc, (name, dz)
+            assert dg == (want_geom if mode.geom_consistency else no_geom), (
+                name, dg)
+        return out
+
+    def interior_error(scale, depth):
+        """(median |depth - z|, share under 0.5) on the interior
+        [0.2, 0.8) x [0.19, 0.81) of the true extent (phase 5's)."""
+        w, h = scale
+        r0, r1 = int(0.2 * h), int(0.8 * h)
+        c0, c1 = int(0.19 * w), int(0.81 * w)
+        err = torch.as_tensor(depth)[r0:r1, c0:c1] - scenes[scale][2]
+        err = err.abs().float()
+        return err.median().item(), (err < 0.5).float().mean().item()
+
+    def on_host(scale, out):
+        """The maps a pass leaves for the next one ([:h, :w], the .dmb
+        contract): depth, world normal, cost."""
+        w, h = scale
+        return tuple(t[:h, :w].cpu().numpy()
+                     for t in (out.depth, out.normal_world, out.cost))
+
+    def prior_solve(scale, i, out, key, name, hierarchy):
+        """The planar-prior second solve (scheduler.py:296-336, 396-404):
+        the prior is built on the host from the first solve's output."""
+        images, cams, _ = scenes[scale]
+        w, h = scale
+        cam = cams[i]
+        dmin = float(cam.depth_min * params.depth_min_relax)
+        dmax = float(cam.depth_max * params.depth_max_relax)
+        depth, normal, cost, pre = (t.cpu().numpy() for t in (
+            out.depth, out.normal_world, out.cost, out.pre_costs))
+        t0 = time.perf_counter()
+        planes, mask = build_planar_prior(cam, depth[:h, :w], cost[:h, :w],
+                                          dmin, dmax, w, h)
+        prior_s[scale] += time.perf_counter() - t0
+        assert planes is not None, (name, i)
+        return solve(scale, i, Mode(planar_prior=True, hierarchy=hierarchy),
+                     keys.fold_in(key, 1), name, init_depth=depth,
+                     init_normal_world=normal, init_cost=cost,
+                     prior_planes=planes, prior_mask=mask,
+                     pre_costs=pre if hierarchy else None)
+
+    def geom_passes(scale, maps, tag):
+        """cfg.geom_iterations geometric passes; pass 2 reads the other
+        views' pass-1 depths (multi_geometry, scheduler.py:257)."""
+        for it in range(cfg.geom_iterations):
+            new = {}
+            for i in range(n_views):
+                d, n, c = maps[i]
+                out = solve(scale, i, Mode(geom_consistency=True),
+                            problem_key(i, tag),
+                            f"{label[scale]} geom {it + 1}",
+                            src_depths=[maps[j][0] for j in range(n_views)
+                                        if j != i],
+                            init_depth=d, init_normal_world=n, init_cost=c)
+                new[i] = on_host(scale, out)
+            maps, tag = new, tag + 1
+        return maps, tag
+
+    log(f"phase 7: the per-view two-scale chain, {n_views} views x "
+        f"{n_views - 1} sources, {label[coarse]} then {label[fine]}, "
+        f"PatchMatchParams(), texture scale {CHAIN_TEXTURE_SCALE}")
+    # the yardstick of the 1.5x rule (and the fine shape's warm-up)
+    name = f"{label[fine]} photometric, the yardstick"
+    ref_err = interior_error(fine, solve(fine, 0, Mode(), problem_key(0, 0),
+                                         name).depth)
+    dev_ms.pop(name)
+    cuda_ncc.reset_launch_counts()
+    cuda_geom.reset_launch_counts()
+    t_chain = time.perf_counter()
+    tag, maps = 0, {}
+    for i in range(n_views):
+        key = problem_key(i, tag)
+        out = solve(coarse, i, Mode(), key, f"{label[coarse]} photometric")
+        out = prior_solve(coarse, i, out, key,
+                          f"{label[coarse]} planar prior", False)
+        maps[i] = on_host(coarse, out)
+    maps, tag = geom_passes(coarse, maps, tag + 1)
+
+    # JBU of each view's coarse geometric depth and normal to the fine
+    # scale (scheduler.py:267-284, 639-659)
+    fine_images = scenes[fine][0]
+    init = {}
+    for i in range(n_views):
+        d, n, c = (torch.as_tensor(a, device=dev) for a in maps[i])
+        gray = torch.as_tensor(fine_images[i], device=dev)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        up_d = jbu_depth(gray, d, params)
+        up_n, _ = jbu_normal_cost(gray, n, c, params)
+        b.record()
+        torch.cuda.synchronize()
+        jbu_name = f"jbu {label[coarse]} -> {label[fine]}"
+        dev_ms.setdefault(jbu_name, []).append(a.elapsed_time(b))
+        assert torch.isfinite(up_d).all() and torch.isfinite(up_n).all()
+        if i == 0:
+            jbu_err = interior_error(fine, up_d)
+            log(f"  view 0 {jbu_name}: median interior |depth - z| "
+                f"{jbu_err[0]:.5f}, share < 0.5 {jbu_err[1]:.4f}")
+        init[i] = (up_d.cpu().numpy(), up_n.cpu().numpy())
+
+    for i in range(n_views):
+        key = problem_key(i, tag)
+        out = solve(fine, i, Mode(hierarchy=True), key,
+                    f"{label[fine]} hierarchy", init_depth=init[i][0],
+                    init_normal_world=init[i][1])
+        out = prior_solve(fine, i, out, key,
+                          f"{label[fine]} hierarchy + planar prior", True)
+        maps[i] = on_host(fine, out)
+    maps, tag = geom_passes(fine, maps, tag + 1)
+    t_chain = time.perf_counter() - t_chain
+    zncc_counts = dict(cuda_ncc.launches)
+    geom_counts = dict(cuda_geom.launches)
+
+    log(f"  chain on {card}: {t_chain:.2f} s wall for "
+        f"{sum(len(v) for k, v in dev_ms.items() if 'jbu' not in k)} solves;"
+        f" host prior build {prior_s[coarse]:.2f} s ({label[coarse]}) + "
+        f"{prior_s[fine]:.2f} s ({label[fine]}) over {n_views} views each; "
+        f"launches zncc {zncc_counts}, geom {geom_counts}")
+    for name, ms in dev_ms.items():
+        # view 0 of each pass is its warm-up at that shape and mode
+        rest = ms[1:]
+        log(f"  {name}: device ms per solve median "
+            f"{statistics.median(rest):.1f}, mean {statistics.fmean(rest):.1f}"
+            f" over views 1-{len(ms) - 1} (view 0: {ms[0]:.1f})")
+    assert all(v > 0 for v in zncc_counts.values()), zncc_counts
+    assert all(v > 0 for v in geom_counts.values()), geom_counts
+
+    med, share = interior_error(fine, maps[0][0])
+    log(f"  view 0 final median interior |depth - z| {med:.5f} (bar "
+        f"{CHAIN_MEDIAN_BAR}; {med / ref_err[0]:.3f} x the photometric "
+        f"{label[fine]} solve's {ref_err[0]:.5f}, bar {CHAIN_RATIO_BAR}; "
+        f"JBU'd coarse {jbu_err[0]:.5f}); share < 0.5: {share:.4f} (bar "
+        f"{CHAIN_SHARE_BAR}; photometric {ref_err[1]:.4f}, JBU'd coarse "
+        f"{jbu_err[1]:.4f})")
+    assert med < CHAIN_MEDIAN_BAR, med
+    assert share > CHAIN_SHARE_BAR, share
+    assert med <= CHAIN_RATIO_BAR * ref_err[0], (med, ref_err)
+    return {"geom_launches": geom_counts, "zncc_launches": zncc_counts}
+
+
 def main() -> int:
     import torch
 
@@ -78,12 +314,15 @@ def main() -> int:
     log(f"card: {card}")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+    import numpy as np
+
     from acmmp_tpu_torch.config import PatchMatchParams
     from acmmp_tpu_torch.core import geometry as geo
     from acmmp_tpu_torch.engine.inputs import build_solver_inputs
     from acmmp_tpu_torch.engine.patchmatch import Mode, run_patchmatch
     from acmmp_tpu_torch.kernels import _build
-    from acmmp_tpu_torch.ops import cuda_ncc, keys
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, keys
+    from acmmp_tpu_torch.ops import geom as geom_ops
     from acmmp_tpu_torch.ops import ncc as ncc_ops
     from acmmp_tpu_torch.ops import parity, sampling
     from acmmp_tpu_torch.utils.synth import textured_plane_scene
@@ -191,16 +430,131 @@ def main() -> int:
     compare(small, random_planes(small, 2, 25, 0.125, 0.25), 1,
             "random window+cap off0=1 tile origin (16, 0)", origin=(16, 0))
 
-    log("phase 3b: kernel vs plain at the main path's shapes, "
-        "1600x1184, 8 sources")
+    # the chain's two scales (phase 7): 9 views at 800x592 (f = 1500) and
+    # 1600x1184 (f = 3000), the texture at CHAIN_TEXTURE_SCALE
+    chain_scenes = {}
+    for width, height, f in ((800, 592, 1500.0), (1600, 1184, 3000.0)):
+        chain_scenes[(width, height)] = textured_plane_scene(
+            n_views=9, width=width, height=height, f=f, plane_z=5.0,
+            texture_scale=CHAIN_TEXTURE_SCALE)
+
     big, plane_z_big, (h_big, w_big) = scene(1600, 1184, 8)
-    compare(big, random_planes(big, 1, 31, 0.125, 0.25), None,
-            "init random window+cap")
-    for K in (8, 3, 2):
-        compare(big, true_planes(big, plane_z_big, K, 50 + K), 0,
-                "coherent off0=0")
-    compare(big, random_planes(big, 2, 32, 0.125, 0.25), 1,
-            "random window+cap off0=1")
+    images_c, cams_c, plane_z_c = chain_scenes[(800, 592)]
+    coarse_in = build_solver_inputs(images_c[0], images_c[1:], cams_c[0],
+                                    cams_c[1:], params, device=dev)
+    for label, inputs, pz in (("1600x1184", big, plane_z_big),
+                              ("800x592", coarse_in, plane_z_c)):
+        log(f"phase 3b: kernel vs plain at the main paths' shapes, {label}, "
+            f"8 sources")
+        compare(inputs, random_planes(inputs, 1, 31, 0.125, 0.25), None,
+                "init random window+cap")
+        for K in (8, 3, 2):
+            compare(inputs, true_planes(inputs, pz, K, 50 + K), 0,
+                    "coherent off0=0")
+        compare(inputs, random_planes(inputs, 2, 32, 0.125, 0.25), 1,
+                "random window+cap off0=1")
+    del coarse_in
+
+    # ---- phase 3c: geom kernel against plain ----
+    geom_err = {k: 0.0 for k in cuda_geom.SUPPORTED_K}
+
+    def geom_rig(width, height, n_src, band_rows, num_views_pad=None):
+        """The non-round rig of tests/test_pallas_geom.py scaled to width:
+        the default rig puts view pairs at integer column shifts on the
+        true plane, a truncation knife-edge. Depth maps: a smooth gradient
+        per real view (zero maps in padded slots), and the same with the
+        first `band_rows` source rows zeroed."""
+        images, cams, plane_z = textured_plane_scene(
+            n_views=n_src + 1, width=width, height=height,
+            f=151.73 * width / 128.0, plane_z=5.1703)
+        inputs = build_solver_inputs(images[0], images[1:], cams[0],
+                                     cams[1:], params,
+                                     num_views_pad=num_views_pad,
+                                     device=dev)
+        V, Hs, Ws = inputs.src_imgs.shape
+        gy = torch.linspace(0.0, 0.3, Hs, device=dev)[:, None].expand(Hs, Ws)
+        smooth = torch.zeros((V, Hs, Ws), device=dev)
+        for v in range(n_src):
+            smooth[v] = plane_z + (gy if v % 2 == 0 else -gy)
+        band = smooth.clone()
+        band[:n_src, :band_rows] = 0.0
+        return inputs, plane_z, smooth, band
+
+    def off_plane(inputs, plane_z, scales):
+        """Fronto-parallel planes at plane_z x scale: generic fractional
+        source coordinates, as in tests/test_pallas_geom.py."""
+        H, W = inputs.ref_img.shape
+        x, y = geo.pixel_grid(H, W, device=dev)
+        cam = inputs.ref_cam
+        n_world = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(H, W, 3)
+        n_cam = geo.normal_world_to_cam(cam, n_world)
+        return torch.stack([geo.plane_from_depth_normal(
+            cam, x, y, torch.full((H, W), plane_z * s, device=dev), n_cam)
+            for s in scales])
+
+    def compare_geom(inputs, depths, planes, off0, label, valid_from=None):
+        """Kernel vs plain on the same inputs; with `valid_from`, the
+        geom_cost_max bands of the off-plane hypotheses (the first two)
+        must match from that grid row on, away from the band's
+        knife-edge rows."""
+        nv = int(inputs.view_mask.sum())
+        if off0 is not None:
+            planes = parity.pack_rows_c(planes, off0)
+        planes = planes.contiguous()
+        K = planes.shape[0]
+
+        def run(p):
+            return geom_ops.geom_consistency_cost(
+                inputs.ref_cam, inputs.src_cams, depths, planes, p,
+                row_pack_off=off0, n_views=nv)
+
+        got = run(params)
+        ref = run(plain_params)
+        torch.cuda.synchronize()
+        mx = params.geom_cost_max
+        a, b = got[..., :nv], ref[..., :nv]
+        assert torch.isfinite(got).all(), label
+        d = (a - b).abs()
+        bad = (d > GEOM_ATOL + GEOM_RTOL * b.abs()).float().mean().item()
+        err = d.max().item()
+        geom_err[K] = max(geom_err[K], err)
+        pad_ok = bool((got[..., nv:] == mx).all()
+                      and (ref[..., nv:] == mx).all())
+        band_ok = True
+        if valid_from is not None:
+            band_ok = bool(torch.equal(a[:2, valid_from:] >= mx,
+                                       b[:2, valid_from:] >= mx))
+        log(f"  {label}: K={K} shape {tuple(got.shape)} bad {bad:.2e} "
+            f"max|d| {err:.3e} at max {(a >= mx).float().mean().item():.4f}"
+            f" padded-slot max {pad_ok} bands equal {band_ok}")
+        assert bad < GEOM_MAX_FRAC, (label, bad)
+        assert pad_ok, label
+        assert band_ok, label
+
+    for width, height, n_src, vpad, band_rows, valid_from in (
+            (320, 240, 4, 5, 16, 48), (800, 592, 8, None, 32, 80),
+            (1600, 1184, 8, None, 64, 160)):
+        log(f"phase 3c: geom kernel vs plain, {width}x{height}, {n_src} "
+            f"sources" + (" (+1 padded slot)" if vpad else ""))
+        rig, pz, smooth, band = geom_rig(width, height, n_src, band_rows,
+                                         vpad)
+        off = off_plane(rig, pz, (1.031, 0.967))
+        rw = random_planes(rig, 3, 61, 0.125, 0.25)
+        rx = random_planes(rig, 3, 62, 0.0, 0.0)
+        stacks = {1: off[:1], 8: torch.cat([off, rw, rx]),
+                  5: torch.cat([off, rw[:2], rx[:1]])}
+        for depths, dname in ((smooth, "smooth"), (band, "band")):
+            vf = valid_from if dname == "band" else 0
+            compare_geom(rig, depths, stacks[1], None,
+                         f"{dname} off-plane full", valid_from=vf)
+            compare_geom(rig, depths, rw[:1], None,
+                         f"{dname} random window+cap full")
+            for K in (8, 5):
+                for off0 in (0, 1):
+                    compare_geom(rig, depths, stacks[K], off0,
+                                 f"{dname} off0={off0}",
+                                 valid_from=vf // 2)
+        del rig, smooth, band, off, rw, rx, stacks
 
     # ---- phase 4: solve-level, kernel vs plain, same key ----
     log("phase 4: 320x240 solve, kernel vs plain, same key")
@@ -228,6 +582,7 @@ def main() -> int:
     run_patchmatch(big, keys.key(1), params, Mode())       # warm-up
     torch.cuda.synchronize()
     cuda_ncc.reset_launch_counts()
+    cuda_geom.reset_launch_counts()
     ev0.record()
     t_host = time.perf_counter()
     out = run_patchmatch(big, keys.key(2), params, Mode())
@@ -235,6 +590,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_host = time.perf_counter() - t_host
     counts = dict(cuda_ncc.launches)
+    assert cuda_geom.total_launches() == 0
     solve_ms = ev0.elapsed_time(ev1)
     n_sweeps = 2 * params.max_iterations
     want = {1: 1, 8: n_sweeps, 3: n_sweeps, 2: n_sweeps}
@@ -316,6 +672,61 @@ def main() -> int:
             log(f"  {label} K={K} grid {Hg}x{W} views {nv}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}), {evals / (ms * 1e-3) / 1e9:.2f} G tap-evals/s")
+
+    def geom_bound(inputs, K, Hg, W):
+        V, Hs, Ws = inputs.src_imgs.shape
+        nv = int(inputs.view_mask.sum())
+        ops = (K * GEOM_OPS_PER_EVAL + GEOM_OPS_PER_PIXEL_VIEW) * nv * Hg * W
+        nbytes = K * Hg * W * 16 + nv * Hs * Ws * 4 + K * Hg * W * V * 4
+        t_ops = ops / PEAK_FP32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    geom_table = {}
+    for (width, height), (images, cams, pz) in chain_scenes.items():
+        label = f"{width}x{height}"
+        inputs = build_solver_inputs(
+            images[0], images[1:], cams[0], cams[1:], params, device=dev,
+            src_depths=[np.full(im.shape, pz, np.float32)
+                        for im in images[1:]])
+        nv = int(inputs.view_mask.sum())
+        H, W = inputs.ref_img.shape
+        gprep = cuda_geom.prepare(inputs.ref_cam, inputs.src_cams,
+                                  inputs.src_depths)
+        for K in (1, 8, 5):
+            off0 = None if K == 1 else 0
+            Hg = H if off0 is None else H // 2
+            # coherent candidates, as a geometric solve scores them
+            planes = true_planes(inputs, pz, K, 70 + K)
+            if off0 is not None:
+                planes = parity.pack_rows_c(planes, off0).contiguous()
+
+            def gkern():
+                return cuda_geom.geom_consistency_cost_cuda(
+                    inputs.ref_cam, inputs.src_cams, inputs.src_depths,
+                    planes, params, row_pack_off=off0, n_views=nv,
+                    prep=gprep)
+
+            def gplain():
+                return geom_ops.geom_consistency_cost(
+                    inputs.ref_cam, inputs.src_cams, inputs.src_depths,
+                    planes, plain_params, row_pack_off=off0)
+
+            ms = time_ms(gkern, 20)
+            plain_ms = time_ms(gplain, 2)
+            b_ms, b_by = geom_bound(inputs, K, Hg, W)
+            geom_table[(label, K)] = (ms, plain_ms, b_ms, b_by)
+            log(f"  geom {label} K={K} grid {Hg}x{W} views {nv}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {K * nv * Hg * W / (ms * 1e-3) / 1e9:.2f} G "
+                f"evals/s")
+        del inputs, gprep, planes
+
+    # ---- phase 7: the per-view two-scale chain at full width ----
+    chain = run_chain(chain_scenes, dev, card)
+    geom_counts = chain["geom_launches"]
+
     for K in (1, 8, 3, 2):
         ms, plain_ms, b_ms, b_by = table[("1600x1184", K)]
         rows.append({
@@ -323,6 +734,14 @@ def main() -> int:
             "source": "acmmp_tpu_torch/csrc/zncc.cu",
             "replaces": TPU_KERNEL[K], "launches": counts[K],
             "max_abs_err": max_err[K], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for K in (1, 8, 5):
+        ms, plain_ms, b_ms, b_by = geom_table[("1600x1184", K)]
+        rows.append({
+            "name": f"geom_k{K}", "route": "cuda",
+            "source": "acmmp_tpu_torch/csrc/geom.cu",
+            "replaces": GEOM_TPU_KERNEL, "launches": geom_counts[K],
+            "max_abs_err": geom_err[K], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     assert all(math.isfinite(r["ms"]) for r in rows)
 

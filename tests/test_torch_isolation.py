@@ -37,6 +37,7 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert "acmmp_tpu_torch.ops.cuda_ncc" in sys.modules
+assert "acmmp_tpu_torch.ops.cuda_geom" in sys.modules
 """
 
 
@@ -51,9 +52,14 @@ def test_chip_smoke_imports_neither_jax_nor_acmmp_tpu():
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
             for a in n.names]
-    mods += [n.module for n in ast.walk(tree)
+    froms = [n for n in ast.walk(tree)
              if isinstance(n, ast.ImportFrom) and n.module]
+    mods += [n.module for n in froms]
+    mods += [f"{n.module}.{a.name}" for n in froms for a in n.names]
     assert "acmmp_tpu_torch.engine.patchmatch" in mods
+    # it drives both kernels of the path
+    assert "acmmp_tpu_torch.ops.cuda_ncc" in mods
+    assert "acmmp_tpu_torch.ops.cuda_geom" in mods
     assert not [m for m in mods if m.split(".")[0] in ("jax", "acmmp_tpu")]
 
 

@@ -196,12 +196,29 @@ def test_port_solve_recovers_plane(solves):
 
 
 def test_other_modes_raise():
+    """A mode whose input is missing raises ValueError naming the field
+    (photometric inputs carry none of the optional ones)."""
     images, cams, _ = textured_plane_scene(n_views=2, width=16, height=8)
     jin = build_solver_inputs(images[0], images[1:], cams[0], cams[1:],
                               JaxParams(), pad_h=1, pad_w=1)
     tin, tkey = solver_inputs_from_numpy(jax.tree.map(np.asarray, jin),
                                          np.zeros(2, np.uint32), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    missing = {Mode(geom_consistency=True): "init_depth",
+               Mode(planar_prior=True): "init_depth",
+               Mode(hierarchy=True): "init_depth",
+               Mode(seeded=True): "seed_planes"}
+    for mode, field in missing.items():
+        with pytest.raises(ValueError, match=f"SolverInputs.{field}"):
+            run_patchmatch(tin, tkey, PatchMatchParams(), mode)
+    # with the re-entry maps given, the geometric mode still needs the
+    # source depth maps, and the planar prior its prior planes
+    h, w = tin.ref_img.shape
+    tin = tin._replace(init_depth=torch.full((h, w), 5.0),
+                       init_normal_world=torch.zeros((h, w, 3)),
+                       init_cost=torch.zeros((h, w)))
+    with pytest.raises(ValueError, match="src_depths"):
         run_patchmatch(tin, tkey, PatchMatchParams(),
                        Mode(geom_consistency=True))
-
+    with pytest.raises(ValueError, match="prior_planes"):
+        run_patchmatch(tin, tkey, PatchMatchParams(),
+                       Mode(hierarchy=True, planar_prior=True))
