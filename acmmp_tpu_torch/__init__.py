@@ -2,12 +2,14 @@
 
 It keeps acmmp_tpu's module layout and names so each function's
 counterpart is easy to find, imports nothing of the JAX package, and runs
-its hot op, the warped bilateral ZNCC, through a hand-written CUDA kernel
-(csrc/zncc.cu) on CUDA tensors. Entry points run on CUDA unless the
-caller passes ``device="cpu"``.
+the JAX package's Pallas kernels as hand-written CUDA kernels on CUDA
+tensors: the warped bilateral ZNCC (csrc/zncc.cu), the geometric-
+consistency cost (csrc/geom.cu) and fusion's sampler (csrc/sample.cu).
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
-Ported so far: the photometric single-view PatchMatch solve
-(engine/patchmatch.py::run_patchmatch with Mode())."""
+Ported so far: every solver mode, the multi-scale scheduler with the
+.dmb disk contract, fusion, and the ``reconstruct``/``fuse`` CLI
+(``python -m acmmp_tpu_torch.cli reconstruct <dense_folder>``)."""
 
 from acmmp_tpu_torch import runtime  # noqa: F401  (sets the f32/TF32 policy)
 from acmmp_tpu_torch.config import PatchMatchParams

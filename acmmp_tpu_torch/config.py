@@ -159,8 +159,11 @@ class FusionParams:
     consistency_scalar: float = 0.3        # --fuse_thresh
     num_consistent_thresh: int = 1         # --num_consistent_thresh
     single_match_penalty: int = 0          # --single_match_penalty (prior-aware)
-    # source-map read backend of the fusion slice (not ported yet)
-    sample_backend: str = "auto"
+    # source-map read backend (ops/sample.py): "auto" = the CUDA kernel
+    # for CUDA tensors and the plain PyTorch version for CPU tensors;
+    # "plain" forces the plain version (the kernel's yardstick); "cuda"
+    # forces the kernel and raises on CPU tensors
+    sample_backend: str = "auto"     # "auto" | "plain" | "cuda"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,8 +194,8 @@ class PipelineConfig:
     pad_h: int = 8
     pad_w: int = 128
     # solve this many reference views per dispatch (batch-mapped stages);
-    # >1 enables the batched executor; a mesh passed to run_pipeline shards
-    # the batch over its "view" axis
+    # >1 enables the JAX package's batched executor, not ported yet: the
+    # port's run_pipeline raises for it (ROADMAP Queue 1 item 12)
     view_batch: int = 1
     # stage-level resume: skip a (view, scale, mode) solve whose pass
     # marker (.pass_NNN.json next to its .dmb outputs) records a completed
@@ -204,7 +207,8 @@ class PipelineConfig:
     # (acmmp_definitions.cpp:1035-1038) and triangulation.png from the
     # planar-prior triangulation (:329)
     debug_images: bool = False
-    # image-domain (tile) sharding: on a mesh, a view whose TRUE pixel
+    # (mesh only, not ported) image-domain (tile) sharding: on a mesh, a
+    # view whose TRUE pixel
     # count exceeds this is solved with its image rows sharded over the
     # mesh and 24-row halo exchange per half-sweep (parallel/tiles.py;
     # stencil extent src/ACMMP.cu:819-827) instead of occupying a single

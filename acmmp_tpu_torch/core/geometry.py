@@ -237,3 +237,10 @@ def pixel_grid(height: int, width: int, device=None):
     x = torch.arange(width, dtype=DTYPE, device=device)[None, :]
     return (x.expand(height, width).contiguous(),
             y.expand(height, width).contiguous())
+
+
+def angle_between(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """Angle between unit vectors, NaN-safe (GetAngle, ACMMP.cpp:253-262)."""
+    dot = (v1 * v2).sum(-1)
+    ang = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    return torch.where(torch.isnan(ang), 0.0, ang)

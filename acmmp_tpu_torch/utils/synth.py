@@ -1,16 +1,20 @@
 """Synthetic scenes with known geometry — the port's copy of
 ``look_at_camera`` and ``textured_plane_scene`` from
-``acmmp_tpu/utils/synth.py`` (numpy only). The scene is generated in memory
+``acmmp_tpu/utils/synth.py`` (numpy only), and ``write_dense_folder``,
+which puts a scene on disk as a dense folder. The scene is generated in memory
 with an analytic texture, so every view is photo-consistent by
 construction and PatchMatch must recover the exact plane depth."""
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 import numpy as np
+from PIL import Image as PILImage
 
-from acmmp_tpu_torch.io.dense_folder import NumpyCamera
+from acmmp_tpu_torch.io.dense_folder import (NumpyCamera, write_cam_txt,
+                                             write_pair_txt)
 
 
 def look_at_camera(eye, target, up=(0.0, 1.0, 0.0), f=120.0, width=64,
@@ -83,3 +87,22 @@ def textured_plane_scene(
         images.append(texture(pw[..., 0], pw[..., 1]).astype(np.float32))
         cams.append(cam)
     return images, cams, plane_z
+
+
+def write_dense_folder(dense: str, images, cams) -> str:
+    """Write a dense folder (images/%08d.jpg at JPEG quality 98,
+    cams/%08d_cam.txt and a pair.txt in which every other view is a
+    source with score 100) — the port's copy of the helper of
+    tests/test_pipeline.py. Returns `dense`."""
+    os.makedirs(os.path.join(dense, "images"), exist_ok=True)
+    os.makedirs(os.path.join(dense, "cams"), exist_ok=True)
+    n = len(images)
+    pairs = []
+    for i in range(n):
+        PILImage.fromarray(np.clip(images[i], 0, 255).astype(np.uint8)).save(
+            os.path.join(dense, "images", f"{i:08d}.jpg"), quality=98)
+        write_cam_txt(os.path.join(dense, "cams", f"{i:08d}_cam.txt"),
+                      cams[i])
+        pairs.append((i, [(j, 100.0) for j in range(n) if j != i]))
+    write_pair_txt(os.path.join(dense, "pair.txt"), pairs)
+    return dense

@@ -32,6 +32,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      depth within the bars of tests/test_patchmatch.py (median < 0.15,
      more than 85% under 0.5, at most 1.5x the error of a photometric
      1600x1184 solve of the same view);
+  3d. (run after 3c) hold the fusion sampler kernel bitwise against its
+     plain version: the five cases of tests/test_pallas_sample.py, then
+     fusion's shapes (8 views, 4 and 8 channels, 800x592 and 1600x1184)
+     with index fields from real projections and 10% invalid lanes that
+     carry garbage indices; phase 6 times it beside its bound, the plain
+     version and one torch.gather;
+  8. the pipeline at full width: phase 7's scene written as a 9-view
+     1600x1184 dense folder (JPEG, 8 sources each) goes through
+     run_pipeline on the card (the scheduler resizes to 800x592: 72
+     solves, 9 JBUs, plain fusion) to a PLY; the .dmb layout and sizes,
+     the launch counts of every kernel, view 0's final depth against
+     phase 7's bars, and the fused cloud against its bars; then the same
+     fusion through the plain sampler (the PLY bytes must be equal), and
+     a prior-aware fusion with a x1.002 second candidate through the
+     kernel and through the plain version (equal PLY bytes);
 then the kernel table as one JSON line, the card line and the result
 line.
 
@@ -42,12 +57,17 @@ CUDA device or when the acmmp_tpu_torch package is not beside it.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import statistics
 import subprocess
 import sys
+import shutil
+import tempfile
 import time
+
+import numpy as np
 
 # ZNCC bar of the JAX package's kernel tests (tests/test_pallas_ncc.py):
 # fewer than 0.1% of costs may differ by more than 2e-3 + 1e-3 |ref|
@@ -87,6 +107,20 @@ CHAIN_MEDIAN_BAR, CHAIN_SHARE_BAR, CHAIN_RATIO_BAR = 0.15, 0.85, 1.5
 # a right chain from a wrong one
 CHAIN_TEXTURE_SCALE = 24.0
 
+# the fusion sampler (csrc/sample.cu) and its yardstick shapes: fusion
+# reads 8 source views at 4 channels (plain) or 8 (prior-aware)
+SAMPLE_TPU_KERNEL = "acmmp_tpu/ops/pallas_sample.py:32"
+SAMPLE_CHANNELS = (4, 8)
+SAMPLE_INVALID_SHARE = 0.1
+# the fused cloud of phase 8 (9 views of the textured plane at 1600x1184):
+# median |z - plane| and the share of points under 0.5, in the spirit of
+# tests/test_pipeline.py::test_full_pipeline_synthetic (0.1 and 0.9 at
+# 64x48) but calibrated to this scene, whose chain ends at a median depth
+# error near 2e-4: a chain on the default texture ended at 0.0295
+# (PERF.md, Findings) and would fail the median bar; at least a quarter of
+# a view's pixels must be fused
+FUSED_MEDIAN_BAR, FUSED_SHARE_BAR, FUSED_MIN_VIEW_SHARE = 0.005, 0.99, 0.25
+
 TPU_KERNEL = {1: "acmmp_tpu/ops/pallas_ncc.py:108",
               2: "acmmp_tpu/ops/pallas_ncc.py:542",
               3: "acmmp_tpu/ops/pallas_ncc.py:542",
@@ -103,6 +137,18 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def interior_error(depth, width, height, plane_z):
+    """(median |depth - z|, share under 0.5) on the interior
+    [0.2, 0.8) x [0.19, 0.81) of the true extent width x height (phase
+    5's)."""
+    import torch
+
+    r0, r1 = int(0.2 * height), int(0.8 * height)
+    c0, c1 = int(0.19 * width), int(0.81 * width)
+    err = (torch.as_tensor(depth)[r0:r1, c0:c1] - plane_z).abs().float()
+    return err.median().item(), (err < 0.5).float().mean().item()
 
 
 def run_chain(scenes, dev, card):
@@ -158,7 +204,7 @@ def run_chain(scenes, dev, card):
         if i == 0:
             dz = {k: cuda_ncc.launches[k] - z0[k] for k in z0}
             dg = {k: cuda_geom.launches[k] - g0[k] for k in g0}
-            med, share = interior_error(scale, out.depth[:h, :w])
+            med, share = scale_error(scale, out.depth[:h, :w])
             log(f"  view 0 {name}: zncc launches {dz}, geom {dg}, "
                 f"{dev_ms[name][-1]:.1f} ms; median interior |depth - z| "
                 f"{med:.5f}, share < 0.5 {share:.4f}")
@@ -167,15 +213,8 @@ def run_chain(scenes, dev, card):
                 name, dg)
         return out
 
-    def interior_error(scale, depth):
-        """(median |depth - z|, share under 0.5) on the interior
-        [0.2, 0.8) x [0.19, 0.81) of the true extent (phase 5's)."""
-        w, h = scale
-        r0, r1 = int(0.2 * h), int(0.8 * h)
-        c0, c1 = int(0.19 * w), int(0.81 * w)
-        err = torch.as_tensor(depth)[r0:r1, c0:c1] - scenes[scale][2]
-        err = err.abs().float()
-        return err.median().item(), (err < 0.5).float().mean().item()
+    def scale_error(scale, depth):
+        return interior_error(depth, *scale, scenes[scale][2])
 
     def on_host(scale, out):
         """The maps a pass leaves for the next one ([:h, :w], the .dmb
@@ -227,7 +266,7 @@ def run_chain(scenes, dev, card):
         f"PatchMatchParams(), texture scale {CHAIN_TEXTURE_SCALE}")
     # the yardstick of the 1.5x rule (and the fine shape's warm-up)
     name = f"{label[fine]} photometric, the yardstick"
-    ref_err = interior_error(fine, solve(fine, 0, Mode(), problem_key(0, 0),
+    ref_err = scale_error(fine, solve(fine, 0, Mode(), problem_key(0, 0),
                                          name).depth)
     dev_ms.pop(name)
     cuda_ncc.reset_launch_counts()
@@ -259,7 +298,7 @@ def run_chain(scenes, dev, card):
         dev_ms.setdefault(jbu_name, []).append(a.elapsed_time(b))
         assert torch.isfinite(up_d).all() and torch.isfinite(up_n).all()
         if i == 0:
-            jbu_err = interior_error(fine, up_d)
+            jbu_err = scale_error(fine, up_d)
             log(f"  view 0 {jbu_name}: median interior |depth - z| "
                 f"{jbu_err[0]:.5f}, share < 0.5 {jbu_err[1]:.4f}")
         init[i] = (up_d.cpu().numpy(), up_n.cpu().numpy())
@@ -291,7 +330,7 @@ def run_chain(scenes, dev, card):
     assert all(v > 0 for v in zncc_counts.values()), zncc_counts
     assert all(v > 0 for v in geom_counts.values()), geom_counts
 
-    med, share = interior_error(fine, maps[0][0])
+    med, share = scale_error(fine, maps[0][0])
     log(f"  view 0 final median interior |depth - z| {med:.5f} (bar "
         f"{CHAIN_MEDIAN_BAR}; {med / ref_err[0]:.3f} x the photometric "
         f"{label[fine]} solve's {ref_err[0]:.5f}, bar {CHAIN_RATIO_BAR}; "
@@ -301,7 +340,150 @@ def run_chain(scenes, dev, card):
     assert med < CHAIN_MEDIAN_BAR, med
     assert share > CHAIN_SHARE_BAR, share
     assert med <= CHAIN_RATIO_BAR * ref_err[0], (med, ref_err)
-    return {"geom_launches": geom_counts, "zncc_launches": zncc_counts}
+    return {"geom_launches": geom_counts, "zncc_launches": zncc_counts,
+            "ref_err": ref_err}
+
+
+class _Records(logging.Handler):
+    """Keeps the port's log records of one run (stage walls, fusion
+    counts, the throughput line)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def run_pipeline_phase(scene, dev, work, chain_ref_err):
+    """Phase 8: `scene` (9 views of phase 7's fine scale) written as a
+    dense folder under `work` goes through run_pipeline on `dev` with
+    PipelineConfig(): the scheduler resizes every view to 800x592, runs
+    the two-scale schedule through the .dmb contract and fuses the final
+    geometric depths to a PLY. Holds the layout, view 0's final depth
+    (phase 7's bars, `chain_ref_err` the photometric 1600x1184 solve of
+    view 0) and the fused cloud to their bars; then fuses the same
+    checkpoints through the plain sampler, and a prior-aware fusion with a
+    x1.002 second candidate through the kernel and the plain version, and
+    requires equal PLY bytes. Returns the launch counts of the pipeline
+    run and of the prior-aware kernel fusion."""
+    import dataclasses
+    import shutil
+
+    from acmmp_tpu_torch.config import PipelineConfig
+    from acmmp_tpu_torch.engine.fusion import (run_fusion,
+                                               run_prior_aware_fusion)
+    from acmmp_tpu_torch.io import read_dmb, read_ply, write_dmb
+    from acmmp_tpu_torch.io.dense_folder import result_dir
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, cuda_sample
+    from acmmp_tpu_torch.pipeline.scheduler import (generate_sample_list,
+                                                    run_pipeline)
+    from acmmp_tpu_torch.utils.synth import write_dense_folder
+
+    images, cams, plane_z = scene
+    n_views = len(images)
+    H, W = images[0].shape
+    t0 = time.perf_counter()
+    dense = write_dense_folder(os.path.join(work, "dense"), images, cams)
+    write_s = time.perf_counter() - t0
+    cfg = PipelineConfig()
+    records = _Records()
+    port_log = logging.getLogger("acmmp_tpu_torch")
+    port_log.addHandler(records)
+    counters = {"zncc": cuda_ncc, "geom": cuda_geom, "sample": cuda_sample}
+    for c in counters.values():
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    ply = run_pipeline(dense, cfg, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {k: dict(c.launches) for k, c in counters.items()}
+    port_log.removeHandler(records)
+    stages = [(r.stage, r.seconds) for r in records.records
+              if hasattr(r, "stage")]
+    lines = [r.getMessage() for r in records.records
+             if r.getMessage().startswith(("pipeline:", "fusion:"))]
+    per_view = [r.args[1] for r in records.records
+                if r.msg.startswith("fusion view")]
+
+    # the checkpoint layout and sizes (the .dmb contract, 1600x1184)
+    out = os.path.dirname(ply)
+    for i in range(n_views):
+        rdir = result_dir(out, i)
+        for name, nb in (("depths.dmb", 1), ("depths_geom.dmb", 1),
+                         ("costs.dmb", 1), ("normals.dmb", 3)):
+            size = os.path.getsize(os.path.join(rdir, name))
+            assert size == 16 + 4 * H * W * nb, (i, name, size)
+        markers = [f for f in os.listdir(rdir) if f.startswith(".pass_")]
+        assert len(markers) == 6, (i, markers)
+
+    med, share = interior_error(
+        read_dmb(os.path.join(result_dir(out, 0), "depths_geom.dmb")), W, H,
+        plane_z)
+    pts, _, _ = read_ply(ply)
+    err = np.abs(pts[:, 2] - plane_z)
+    f_med, f_share = float(np.median(err)), float((err < 0.5).mean())
+
+    # the same fusion through the plain sampler: the same bytes
+    problems = generate_sample_list(dense)
+    plain_fp = dataclasses.replace(cfg.fusion, sample_backend="plain")
+    t0 = time.perf_counter()
+    plain_ply = run_fusion(dense, out, problems, True, plain_fp,
+                           ply_name="plain_sampler.ply", device=dev)
+    plain_fusion_s = time.perf_counter() - t0
+    with open(ply, "rb") as a, open(plain_ply, "rb") as b:
+        plain_equal = a.read() == b.read()
+
+    # prior-aware fusion: candidate 0 the run's checkpoints, candidate 1 a
+    # copy whose depths are x1.002; kernel against plain
+    second = os.path.join(dense, "ACMMP_x1002")
+    for i in range(n_views):
+        src, dst = result_dir(out, i), result_dir(second, i)
+        os.makedirs(dst)
+        write_dmb(os.path.join(dst, "depths_geom.dmb"),
+                  read_dmb(os.path.join(src, "depths_geom.dmb")) * 1.002)
+        shutil.copy(os.path.join(src, "normals.dmb"), dst)
+    dual = {}
+    for backend in ("auto", "plain"):
+        fp = dataclasses.replace(cfg.fusion, sample_backend=backend,
+                                 single_match_penalty=1)
+        cuda_sample.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = run_prior_aware_fusion(
+            dense, second, out, problems, True, fp, single_match_penalty=1,
+            ply_name=f"dual_{backend}.ply", device=dev)
+        with open(path, "rb") as f:
+            dual[backend] = (f.read(), time.perf_counter() - t0,
+                             cuda_sample.launches["gather2d"])
+    dual_pts = read_ply(os.path.join(second, "dual_auto.ply"))[0]
+
+    log(f"  dense folder written in {write_s:.2f} s; pipeline wall "
+        f"{wall:.2f} s; " + "; ".join(lines))
+    log("  stage walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in stages))
+    log(f"  launches: {launches}")
+    log(f"  fused points per view {per_view}, {len(pts)} in all; median "
+        f"|z - plane| {f_med:.6f} (bar {FUSED_MEDIAN_BAR}), share < 0.5 "
+        f"{f_share:.5f} (bar {FUSED_SHARE_BAR}); plain-sampler fusion "
+        f"{plain_fusion_s:.2f} s, PLY bytes equal {plain_equal}")
+    log(f"  view 0 final depths_geom.dmb: median interior |depth - z| "
+        f"{med:.5f} (bar {CHAIN_MEDIAN_BAR}; {med / chain_ref_err[0]:.3f} x "
+        f"the photometric 1600x1184 solve's {chain_ref_err[0]:.5f}, bar "
+        f"{CHAIN_RATIO_BAR}), share < 0.5 {share:.4f} (bar "
+        f"{CHAIN_SHARE_BAR})")
+    log(f"  prior-aware fusion (x1.002 second candidate): {len(dual_pts)} "
+        f"points; kernel {dual['auto'][1]:.2f} s with "
+        f"{dual['auto'][2]} sampler launches, plain {dual['plain'][1]:.2f} "
+        f"s; PLY bytes equal {dual['auto'][0] == dual['plain'][0]}")
+    assert med < CHAIN_MEDIAN_BAR, med
+    assert share > CHAIN_SHARE_BAR, share
+    assert med <= CHAIN_RATIO_BAR * chain_ref_err[0], (med, chain_ref_err)
+    assert np.isfinite(pts).all()
+    assert len(pts) >= FUSED_MIN_VIEW_SHARE * H * W, len(pts)
+    assert f_med < FUSED_MEDIAN_BAR, f_med
+    assert f_share > FUSED_SHARE_BAR, f_share
+    assert plain_equal
+    assert len(dual_pts) > 0 and dual["auto"][0] == dual["plain"][0]
+    return {"launches": launches, "dual_launches": dual["auto"][2]}
 
 
 def main() -> int:
@@ -310,11 +492,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-
-    import numpy as np
 
     from acmmp_tpu_torch.config import PatchMatchParams
     from acmmp_tpu_torch.core import geometry as geo
@@ -556,6 +737,91 @@ def main() -> int:
                                  valid_from=vf // 2)
         del rig, smooth, band, off, rw, rx, stacks
 
+    # ---- phase 3d: the fusion sampler against its plain version ----
+    from acmmp_tpu_torch.engine import fusion
+    from acmmp_tpu_torch.ops import cuda_sample
+    from acmmp_tpu_torch.ops import sample as sample_ops
+
+    sample_err = {}
+    rng = np.random.default_rng(3)
+    on_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+
+    def compare_sample(maps, rr, cc, valid, label):
+        """Kernel vs plain on the same inputs: bitwise (int32 views, so a
+        NaN word compares too)."""
+        got = sample_ops.gather2d_sample(maps, rr, cc, valid)
+        ref = sample_ops.gather2d_sample(maps, rr, cc, valid,
+                                         backend="plain")
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got.view(torch.int32),
+                                ref.view(torch.int32)))
+        err = torch.nan_to_num((got - ref).abs()).max().item()
+        C = maps.shape[1]
+        sample_err[C] = max(sample_err.get(C, 0.0), err)
+        log(f"  {label}: maps {tuple(maps.shape)} out {tuple(got.shape)} "
+            f"valid {valid.float().mean().item():.4f} bitwise {same}")
+        assert same, label
+
+    def case(V, C, Hs, Ws, H, W, valid_share, field):
+        maps = rng.normal(size=(V, C, Hs, Ws)).astype(np.float32)
+        if field == "coherent":
+            y, x = np.mgrid[:H, :W]
+            rr = np.clip((0.9 * y + 0.02 * x + 3).astype(np.int32), 0, Hs - 1)
+            cc = np.clip((0.97 * x + 0.1 * y + 1).astype(np.int32), 0,
+                         Ws - 1)
+            rr = np.broadcast_to(rr, (V, H, W)).copy()
+            cc = np.broadcast_to(cc, (V, H, W)).copy()
+        else:
+            rr = rng.integers(0, Hs, (V, H, W)).astype(np.int32)
+            cc = rng.integers(0, Ws, (V, H, W)).astype(np.int32)
+        valid = rng.random((V, H, W)) < valid_share
+        rr[~valid] = np.int32(-2147483648)       # NaN-cast garbage
+        cc[~valid] = np.int32(2147483647)
+        return tuple(on_dev(a) for a in (maps, rr, cc, valid))
+
+    log("phase 3d: sampler kernel vs plain, the cases of "
+        "tests/test_pallas_sample.py")
+    for label, args in (
+            ("coherent field", (2, 3, 32, 128, 16, 128, 1.0, "coherent")),
+            ("scattered indices", (2, 2, 40, 256, 8, 128, 1.0, "random")),
+            ("invalid lanes, garbage indices",
+             (1, 2, 24, 128, 8, 128, 0.7, "random")),
+            ("all-invalid tile", (1, 1, 16, 128, 8, 128, 0.0, "random")),
+            ("unaligned shapes", (2, 4, 21, 100, 13, 77, 0.9, "random"))):
+        compare_sample(*case(*args), label)
+
+    def fusion_fields(scene, C, seed):
+        """Fusion's sampler inputs for view 0 of a 9-view scene: index
+        fields from projecting a gently curved depth map into the 8
+        sources (fusion._project_index), 10% of lanes invalid with garbage
+        indices, random maps with a NaN lattice (all 8 views x C channels
+        at the sources' shape)."""
+        images, cams, pz = scene
+        H, W = images[0].shape
+        ref = cams[0].to_torch(dev)
+        src = geo.stack_cameras([c.to_torch(dev) for c in cams[1:]])
+        x, y = geo.pixel_grid(H, W, device=dev)
+        depth = pz * (1.0 + 0.01 * torch.sin(x / 37.0) * torch.cos(y / 23.0))
+        Xw = geo.world_point(ref, x, y, depth)
+        rr, cc, inb = fusion._project_index(fusion._per_view(src), Xw, H, W)
+        V = rr.shape[0]
+        bad = on_dev(rng.random((V, H, W)) < SAMPLE_INVALID_SHARE)
+        garbage = on_dev(rng.integers(-2 ** 31, 2 ** 31 - 1, (2, V, H, W),
+                                      dtype=np.int64).astype(np.int32))
+        rr = torch.where(bad, garbage[0], rr).contiguous()
+        cc = torch.where(bad, garbage[1], cc).contiguous()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        maps = torch.randn((V, C, H, W), generator=gen, device=dev)
+        maps[..., ::97, ::89] = float("nan")
+        return maps, rr, cc, (inb & ~bad).contiguous()
+
+    for (width, height), scene_ in chain_scenes.items():
+        for C in SAMPLE_CHANNELS:
+            log(f"phase 3d: sampler kernel vs plain at fusion's shape, "
+                f"{width}x{height}, 8 views, C={C}")
+            compare_sample(*fusion_fields(scene_, C, 80 + C),
+                           "projected field, 10% garbage lanes")
+
     # ---- phase 4: solve-level, kernel vs plain, same key ----
     log("phase 4: 320x240 solve, kernel vs plain, same key")
     small4, _, (h4, w4) = scene(320, 240, 4)
@@ -723,9 +989,71 @@ def main() -> int:
                 f"evals/s")
         del inputs, gprep, planes
 
+    def sample_bound(V, C, Hs, Ws, H, W):
+        # maps, rr, cc, valid read once, the output written once; no
+        # arithmetic, so the bytes bound it
+        nbytes = V * C * Hs * Ws * 4 + V * H * W * 9 + V * C * H * W * 4
+        return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+    sample_table = {}
+    for (width, height), scene_ in chain_scenes.items():
+        for C in SAMPLE_CHANNELS:
+            maps, rr, cc, valid = fusion_fields(scene_, C, 90 + C)
+            V, _, Hs, Ws = maps.shape
+            H, W = rr.shape[1:]
+
+            def skern():
+                return cuda_sample.gather2d_cuda(maps, rr, cc, valid)
+
+            def splain():
+                return sample_ops.gather2d(maps, rr, cc, valid)
+
+            def slib():
+                # the yardstick: one torch.gather on the flattened maps
+                # with the masked index, then torch.where
+                idx = torch.where(valid, rr.long() * Ws + cc.long(), 0)
+                out = torch.gather(maps.reshape(V, C, Hs * Ws), 2,
+                                   idx.reshape(V, 1, H * W).expand(
+                                       V, C, H * W))
+                return torch.where(valid[:, None],
+                                   out.reshape(V, C, H, W), 0.0)
+
+            ms = time_ms(skern, 20)
+            plain_ms = time_ms(splain, 5)
+            lib_ms = time_ms(slib, 5)
+            b_ms, b_by = sample_bound(V, C, Hs, Ws, H, W)
+            label = f"{width}x{height}"
+            sample_table[(label, C)] = (ms, plain_ms, b_ms, b_by, lib_ms)
+            log(f"  sample {label} C={C} views {V}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, torch.gather {lib_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of it")
+            del maps, rr, cc, valid
+
     # ---- phase 7: the per-view two-scale chain at full width ----
     chain = run_chain(chain_scenes, dev, card)
     geom_counts = chain["geom_launches"]
+
+    # ---- phase 8: the pipeline at full width through the disk ----
+    fine_scene = chain_scenes[(1600, 1184)]
+    log(f"phase 8: run_pipeline on a {len(fine_scene[0])}-view 1600x1184 "
+        f"dense folder, PipelineConfig(), texture scale "
+        f"{CHAIN_TEXTURE_SCALE}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    pipe = run_pipeline_phase(fine_scene, dev, work, chain["ref_err"])
+    shutil.rmtree(work)
+    n_sweeps = 2 * params.max_iterations
+    n_views = len(fine_scene[0])
+    # per view and scale: a first solve, its planar-prior second solve and
+    # two geometric solves; 13 ZNCC launches per solve, 9 geom launches per
+    # geometric solve, one sampler launch per fused view
+    solves, geom_solves = 8 * n_views, 4 * n_views
+    want = {"zncc": {1: solves, 8: solves * n_sweeps, 3: solves * n_sweeps,
+                     2: solves * n_sweeps},
+            "geom": {1: geom_solves, 8: geom_solves * n_sweeps,
+                     5: geom_solves * n_sweeps},
+            "sample": {"gather2d": n_views}}
+    assert pipe["launches"] == want, (pipe["launches"], want)
+    assert pipe["dual_launches"] == 2 * n_views, pipe["dual_launches"]
 
     for K in (1, 8, 3, 2):
         ms, plain_ms, b_ms, b_by = table[("1600x1184", K)]
@@ -743,7 +1071,17 @@ def main() -> int:
             "replaces": GEOM_TPU_KERNEL, "launches": geom_counts[K],
             "max_abs_err": geom_err[K], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for C, launches in ((4, pipe["launches"]["sample"]["gather2d"]),
+                        (8, pipe["dual_launches"])):
+        ms, plain_ms, b_ms, b_by, lib_ms = sample_table[("1600x1184", C)]
+        rows.append({
+            "name": f"gather2d_c{C}", "route": "cuda",
+            "source": "acmmp_tpu_torch/csrc/sample.cu",
+            "replaces": SAMPLE_TPU_KERNEL, "launches": launches,
+            "max_abs_err": sample_err[C], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
     assert all(math.isfinite(r["ms"]) for r in rows)
+    log(f"chip_smoke wall {time.perf_counter() - t_script:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

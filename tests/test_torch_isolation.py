@@ -38,6 +38,10 @@ print(len(names), bad)
 assert not bad, bad
 assert "acmmp_tpu_torch.ops.cuda_ncc" in sys.modules
 assert "acmmp_tpu_torch.ops.cuda_geom" in sys.modules
+assert "acmmp_tpu_torch.ops.cuda_sample" in sys.modules
+for m in ("io.dmb", "io.ply", "io.priors", "utils.log", "engine.fusion",
+          "pipeline.scheduler", "cli"):
+    assert "acmmp_tpu_torch." + m in sys.modules, m
 """
 
 
@@ -57,9 +61,12 @@ def test_chip_smoke_imports_neither_jax_nor_acmmp_tpu():
     mods += [n.module for n in froms]
     mods += [f"{n.module}.{a.name}" for n in froms for a in n.names]
     assert "acmmp_tpu_torch.engine.patchmatch" in mods
-    # it drives both kernels of the path
+    # it drives every kernel of the path
     assert "acmmp_tpu_torch.ops.cuda_ncc" in mods
     assert "acmmp_tpu_torch.ops.cuda_geom" in mods
+    assert "acmmp_tpu_torch.ops.cuda_sample" in mods
+    # and the pipeline through its entry point
+    assert "acmmp_tpu_torch.pipeline.scheduler" in mods
     assert not [m for m in mods if m.split(".")[0] in ("jax", "acmmp_tpu")]
 
 
