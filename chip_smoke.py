@@ -24,8 +24,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      per solve; median interior depth error below 0.15;
   6. per-launch kernel times at the main paths' shapes beside the plain
      version and the bound;
-  7. ACMMP's per-view two-scale chain at full width: 9 views, each the
-     reference with the other 8 as sources, at 800x592 (photometric,
+  7. ACMMP's per-view two-scale chain at full width on arrays: 3 of the
+     9 views (0, 4, 8), each the reference with the other 2 as sources
+     (phase 8 runs the same schedule on all 9 through the disk), at
+     800x592 (photometric,
      planar-prior second solve, two geometric passes), JBU to 1600x1184,
      then hierarchy, hierarchy + planar prior and two geometric passes;
      9 geom and 13 ZNCC launches per geometric solve; view 0's final
@@ -36,14 +38,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      plain version: the five cases of tests/test_pallas_sample.py, then
      fusion's shapes (8 views, 4 and 8 channels, 800x592 and 1600x1184)
      with index fields from real projections and 10% invalid lanes that
-     carry garbage indices; phase 6 times it beside its bound, the plain
-     version and one torch.gather;
+     carry garbage indices; phase 6 times it on fusion's projected fields
+     (lanes projected out of view invalid) beside the bytes those inputs
+     make it move, the plain version and one torch.gather;
   8. the pipeline at full width: phase 7's scene written as a 9-view
      1600x1184 dense folder (JPEG, 8 sources each) goes through
      run_pipeline on the card (the scheduler resizes to 800x592: 72
      solves, 9 JBUs, plain fusion) to a PLY; the .dmb layout and sizes,
      the launch counts of every kernel, view 0's final depth against
-     phase 7's bars, and the fused cloud against its bars; then the same
+     phase 7's bars (its yardstick view 0's photometric solve with its 8
+     sources), the fused cloud against its bars, and the fusion's sampler
+     launches timed with CUDA events beside their bound; then the same
      fusion through the plain sampler (the PLY bytes must be equal), and
      a prior-aware fusion with a x1.002 second candidate through the
      kernel and through the plain version (equal PLY bytes);
@@ -112,6 +117,10 @@ CHAIN_TEXTURE_SCALE = 24.0
 SAMPLE_TPU_KERNEL = "acmmp_tpu/ops/pallas_sample.py:32"
 SAMPLE_CHANNELS = (4, 8)
 SAMPLE_INVALID_SHARE = 0.1
+# phase 7 runs the chain on these 3 of the 9 views (baselines 0.25 and
+# 0.5 around view 0): every mode and both solver kernels, while phase 8
+# runs the schedule on all 9
+CHAIN_VIEWS = (0, 4, 8)
 # the fused cloud of phase 8 (9 views of the textured plane at 1600x1184):
 # median |z - plane| and the share of points under 0.5, in the spirit of
 # tests/test_pipeline.py::test_full_pipeline_synthetic (0.1 and 0.9 at
@@ -151,16 +160,55 @@ def interior_error(depth, width, height, plane_z):
     return err.median().item(), (err < 0.5).float().mean().item()
 
 
+def photometric_yardstick(scene, dev):
+    """The yardstick of the 1.5x rule: view 0's photometric solve at the
+    scene's scale, every other view a source, with the key of its first
+    pass in the scheduler (scheduler.py:347-348). Returns its interior
+    error (median, share under 0.5)."""
+    from acmmp_tpu_torch.config import PatchMatchParams, PipelineConfig
+    from acmmp_tpu_torch.engine.inputs import build_solver_inputs
+    from acmmp_tpu_torch.engine.patchmatch import Mode, run_patchmatch
+    from acmmp_tpu_torch.ops import keys
+
+    images, cams, plane_z = scene
+    params = PatchMatchParams()
+    inputs = build_solver_inputs(images[0], images[1:], cams[0], cams[1:],
+                                 params, device=dev)
+    key = keys.fold_in(keys.key(PipelineConfig().seed), 0)
+    out = run_patchmatch(inputs, key, params, Mode())
+    H, W = images[0].shape
+    assert bool(out.depth[:H, :W].isfinite().all())
+    return interior_error(out.depth[:H, :W], W, H, plane_z)
+
+
+def sample_bytes(maps, rr, cc, valid):
+    """The bytes the fusion sampler must move on these inputs, a 0-d
+    tensor on their device (no host sync): `valid` for every lane, `rr`
+    and `cc` for the valid lanes only, the C words of every distinct
+    source pixel that a valid lane reads, and the output. An invalid lane
+    reads neither its indices nor the maps."""
+    import torch
+
+    V, C, Hs, Ws = maps.shape
+    v = torch.arange(V, device=maps.device).view(V, 1, 1)
+    flat = torch.where(valid, (v * Hs + rr.long()) * Ws + cc.long(), -1)
+    s = torch.sort(flat.flatten()).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    distinct = (first & (s >= 0)).sum()
+    return valid.numel() * (1 + 4 * C) + 8 * valid.sum() + 4 * C * distinct
+
+
 def run_chain(scenes, dev, card):
     """Phase 7: ACMMP's per-view two-scale chain as run_pipeline schedules
     it (acmmp_tpu/pipeline/scheduler.py:724-765), with arrays in place of
-    the .dmb files. `scenes` maps (width, height) to a 9-view scene; each
-    view in turn is the reference and the other 8 its sources. The port
-    has no image resize yet, so the coarse scale is rendered directly at
-    800x592 (f = 1500; its principal point is (W-1)/2 of that size, a
-    quarter pixel from a resize of the 1600x1184 view). View 0's final
-    depth is held to the bars and to a photometric solve of view 0 at the
-    fine scale. Returns the chain's launch counts by kernel."""
+    the .dmb files. `scenes` maps (width, height) to a scene of the same
+    views at that scale; each view in turn is the reference and the others
+    its sources. The coarse scale is rendered directly at 800x592 (f =
+    1500; its principal point is (W-1)/2 of that size, a quarter pixel
+    from a resize of the 1600x1184 view). View 0's final depth is held to
+    the bars and to a photometric solve of view 0 at the fine scale.
+    Returns the chain's launch counts by kernel."""
     import torch
 
     from acmmp_tpu_torch.config import PatchMatchParams, PipelineConfig
@@ -265,10 +313,7 @@ def run_chain(scenes, dev, card):
         f"{n_views - 1} sources, {label[coarse]} then {label[fine]}, "
         f"PatchMatchParams(), texture scale {CHAIN_TEXTURE_SCALE}")
     # the yardstick of the 1.5x rule (and the fine shape's warm-up)
-    name = f"{label[fine]} photometric, the yardstick"
-    ref_err = scale_error(fine, solve(fine, 0, Mode(), problem_key(0, 0),
-                                         name).depth)
-    dev_ms.pop(name)
+    ref_err = photometric_yardstick(scenes[fine], dev)
     cuda_ncc.reset_launch_counts()
     cuda_geom.reset_launch_counts()
     t_chain = time.perf_counter()
@@ -340,8 +385,7 @@ def run_chain(scenes, dev, card):
     assert med < CHAIN_MEDIAN_BAR, med
     assert share > CHAIN_SHARE_BAR, share
     assert med <= CHAIN_RATIO_BAR * ref_err[0], (med, ref_err)
-    return {"geom_launches": geom_counts, "zncc_launches": zncc_counts,
-            "ref_err": ref_err}
+    return {"geom_launches": geom_counts, "zncc_launches": zncc_counts}
 
 
 class _Records(logging.Handler):
@@ -356,20 +400,23 @@ class _Records(logging.Handler):
         self.records.append(record)
 
 
-def run_pipeline_phase(scene, dev, work, chain_ref_err):
+def run_pipeline_phase(scene, dev, work, ref_err):
     """Phase 8: `scene` (9 views of phase 7's fine scale) written as a
     dense folder under `work` goes through run_pipeline on `dev` with
     PipelineConfig(): the scheduler resizes every view to 800x592, runs
     the two-scale schedule through the .dmb contract and fuses the final
     geometric depths to a PLY. Holds the layout, view 0's final depth
-    (phase 7's bars, `chain_ref_err` the photometric 1600x1184 solve of
-    view 0) and the fused cloud to their bars; then fuses the same
+    (phase 7's bars, `ref_err` the photometric 1600x1184 solve of view 0
+    with its 8 sources) and the fused cloud to their bars, and times the
+    fusion's sampler launches with CUDA events; then fuses the same
     checkpoints through the plain sampler, and a prior-aware fusion with a
     x1.002 second candidate through the kernel and the plain version, and
     requires equal PLY bytes. Returns the launch counts of the pipeline
     run and of the prior-aware kernel fusion."""
     import dataclasses
     import shutil
+
+    import torch
 
     from acmmp_tpu_torch.config import PipelineConfig
     from acmmp_tpu_torch.engine.fusion import (run_fusion,
@@ -394,9 +441,30 @@ def run_pipeline_phase(scene, dev, work, chain_ref_err):
     counters = {"zncc": cuda_ncc, "geom": cuda_geom, "sample": cuda_sample}
     for c in counters.values():
         c.reset_launch_counts()
+    # CUDA events around each sampler launch of the run's fusion, and the
+    # bytes that launch must move (sample_bytes, queued after it on the
+    # stream: no host sync inside the fusion)
+    launch_gather, sampler = cuda_sample.gather2d_cuda, []
+
+    def timed_gather(maps, rr, cc, valid):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = launch_gather(maps, rr, cc, valid)
+        b.record()
+        sampler.append((a, b, sample_bytes(maps, rr, cc, valid)))
+        return out
+
+    cuda_sample.gather2d_cuda = timed_gather
     t0 = time.perf_counter()
-    ply = run_pipeline(dense, cfg, device=dev)
+    try:
+        ply = run_pipeline(dense, cfg, device=dev)
+    finally:
+        cuda_sample.gather2d_cuda = launch_gather
     wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    sampler_ms = [a.elapsed_time(b) for a, b, _ in sampler]
+    sampler_bound_ms = sum(n.item() for _, _, n in sampler) / (
+        PEAK_BYTES_PER_S * 1e-3)
     launches = {k: dict(c.launches) for k, c in counters.items()}
     port_log.removeHandler(records)
     stages = [(r.stage, r.seconds) for r in records.records
@@ -461,13 +529,18 @@ def run_pipeline_phase(scene, dev, work, chain_ref_err):
         f"{wall:.2f} s; " + "; ".join(lines))
     log("  stage walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in stages))
     log(f"  launches: {launches}")
+    log(f"  fusion's sampler launches (CUDA events): "
+        f"{sum(sampler_ms):.4f} ms in all over {len(sampler_ms)}, "
+        f"{[round(t, 4) for t in sampler_ms]}; bound of their inputs "
+        f"{sampler_bound_ms:.4f} ms (bytes), "
+        f"{sampler_bound_ms / sum(sampler_ms):.3f} of it")
     log(f"  fused points per view {per_view}, {len(pts)} in all; median "
         f"|z - plane| {f_med:.6f} (bar {FUSED_MEDIAN_BAR}), share < 0.5 "
         f"{f_share:.5f} (bar {FUSED_SHARE_BAR}); plain-sampler fusion "
         f"{plain_fusion_s:.2f} s, PLY bytes equal {plain_equal}")
     log(f"  view 0 final depths_geom.dmb: median interior |depth - z| "
-        f"{med:.5f} (bar {CHAIN_MEDIAN_BAR}; {med / chain_ref_err[0]:.3f} x "
-        f"the photometric 1600x1184 solve's {chain_ref_err[0]:.5f}, bar "
+        f"{med:.5f} (bar {CHAIN_MEDIAN_BAR}; {med / ref_err[0]:.3f} x "
+        f"the photometric 1600x1184 solve's {ref_err[0]:.5f}, bar "
         f"{CHAIN_RATIO_BAR}), share < 0.5 {share:.4f} (bar "
         f"{CHAIN_SHARE_BAR})")
     log(f"  prior-aware fusion (x1.002 second candidate): {len(dual_pts)} "
@@ -476,12 +549,13 @@ def run_pipeline_phase(scene, dev, work, chain_ref_err):
         f"s; PLY bytes equal {dual['auto'][0] == dual['plain'][0]}")
     assert med < CHAIN_MEDIAN_BAR, med
     assert share > CHAIN_SHARE_BAR, share
-    assert med <= CHAIN_RATIO_BAR * chain_ref_err[0], (med, chain_ref_err)
+    assert med <= CHAIN_RATIO_BAR * ref_err[0], (med, ref_err)
     assert np.isfinite(pts).all()
     assert len(pts) >= FUSED_MIN_VIEW_SHARE * H * W, len(pts)
     assert f_med < FUSED_MEDIAN_BAR, f_med
     assert f_share > FUSED_SHARE_BAR, f_share
     assert plain_equal
+    assert len(sampler_ms) == n_views, sampler_ms
     assert len(dual_pts) > 0 and dual["auto"][0] == dual["plain"][0]
     return {"launches": launches, "dual_launches": dual["auto"][2]}
 
@@ -790,10 +864,11 @@ def main() -> int:
             ("unaligned shapes", (2, 4, 21, 100, 13, 77, 0.9, "random"))):
         compare_sample(*case(*args), label)
 
-    def fusion_fields(scene, C, seed):
+    def fusion_fields(scene, C, seed, garbage_share):
         """Fusion's sampler inputs for view 0 of a 9-view scene: index
         fields from projecting a gently curved depth map into the 8
-        sources (fusion._project_index), 10% of lanes invalid with garbage
+        sources (fusion._project_index; lanes projected out of view are
+        invalid), `garbage_share` of the lanes also invalid with garbage
         indices, random maps with a NaN lattice (all 8 views x C channels
         at the sources' shape)."""
         images, cams, pz = scene
@@ -805,7 +880,7 @@ def main() -> int:
         Xw = geo.world_point(ref, x, y, depth)
         rr, cc, inb = fusion._project_index(fusion._per_view(src), Xw, H, W)
         V = rr.shape[0]
-        bad = on_dev(rng.random((V, H, W)) < SAMPLE_INVALID_SHARE)
+        bad = on_dev(rng.random((V, H, W)) < garbage_share)
         garbage = on_dev(rng.integers(-2 ** 31, 2 ** 31 - 1, (2, V, H, W),
                                       dtype=np.int64).astype(np.int32))
         rr = torch.where(bad, garbage[0], rr).contiguous()
@@ -819,7 +894,8 @@ def main() -> int:
         for C in SAMPLE_CHANNELS:
             log(f"phase 3d: sampler kernel vs plain at fusion's shape, "
                 f"{width}x{height}, 8 views, C={C}")
-            compare_sample(*fusion_fields(scene_, C, 80 + C),
+            compare_sample(*fusion_fields(scene_, C, 80 + C,
+                                          SAMPLE_INVALID_SHARE),
                            "projected field, 10% garbage lanes")
 
     # ---- phase 4: solve-level, kernel vs plain, same key ----
@@ -989,16 +1065,11 @@ def main() -> int:
                 f"evals/s")
         del inputs, gprep, planes
 
-    def sample_bound(V, C, Hs, Ws, H, W):
-        # maps, rr, cc, valid read once, the output written once; no
-        # arithmetic, so the bytes bound it
-        nbytes = V * C * Hs * Ws * 4 + V * H * W * 9 + V * C * H * W * 4
-        return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
-
     sample_table = {}
     for (width, height), scene_ in chain_scenes.items():
         for C in SAMPLE_CHANNELS:
-            maps, rr, cc, valid = fusion_fields(scene_, C, 90 + C)
+            # fusion's own invalid lanes only (projected out of view)
+            maps, rr, cc, valid = fusion_fields(scene_, C, 90 + C, 0.0)
             V, _, Hs, Ws = maps.shape
             H, W = rr.shape[1:]
 
@@ -1021,16 +1092,23 @@ def main() -> int:
             ms = time_ms(skern, 20)
             plain_ms = time_ms(splain, 5)
             lib_ms = time_ms(slib, 5)
-            b_ms, b_by = sample_bound(V, C, Hs, Ws, H, W)
+            # no arithmetic: the bytes these inputs need bound it
+            nbytes = sample_bytes(maps, rr, cc, valid).item()
+            b_ms, b_by = nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
             label = f"{width}x{height}"
             sample_table[(label, C)] = (ms, plain_ms, b_ms, b_by, lib_ms)
-            log(f"  sample {label} C={C} views {V}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, torch.gather {lib_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by}), {b_ms / ms:.3f} of it")
+            log(f"  sample {label} C={C} views {V}: valid lanes "
+                f"{valid.float().mean().item():.4f}, {nbytes} bytes to move; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / ms:.3f} of it")
             del maps, rr, cc, valid
 
     # ---- phase 7: the per-view two-scale chain at full width ----
-    chain = run_chain(chain_scenes, dev, card)
+    chain = run_chain({size: ([images[i] for i in CHAIN_VIEWS],
+                              [cams[i] for i in CHAIN_VIEWS], pz)
+                       for size, (images, cams, pz) in chain_scenes.items()},
+                      dev, card)
     geom_counts = chain["geom_launches"]
 
     # ---- phase 8: the pipeline at full width through the disk ----
@@ -1038,8 +1116,9 @@ def main() -> int:
     log(f"phase 8: run_pipeline on a {len(fine_scene[0])}-view 1600x1184 "
         f"dense folder, PipelineConfig(), texture scale "
         f"{CHAIN_TEXTURE_SCALE}")
+    ref_err = photometric_yardstick(fine_scene, dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    pipe = run_pipeline_phase(fine_scene, dev, work, chain["ref_err"])
+    pipe = run_pipeline_phase(fine_scene, dev, work, ref_err)
     shutil.rmtree(work)
     n_sweeps = 2 * params.max_iterations
     n_views = len(fine_scene[0])
