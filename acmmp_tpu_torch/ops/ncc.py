@@ -129,7 +129,20 @@ def sample_views(src_imgs, sx, sy, sw, sh):
     true extent (sw, sh)[v] — geometry.bilinear_sample per view, with the
     NaN guard of the kernel (a NaN coordinate reads pixel 0, as in
     pallas_ncc.py:324-325; the JAX oracle would read garbage there)."""
-    V, Hs, Ws = src_imgs.shape
+    x0, y0, x1, y1, fx, fy = place_views(sx, sy, sw, sh)
+    return bilinear(*gather_views(src_imgs, x0, y0, x1, y1), fx, fy)
+
+
+def bilinear(v00, v01, v10, v11, fx, fy):
+    """The bilinear blend of the corners (y0, x0), (y0, x1), (y1, x0),
+    (y1, x1) at fractions (fx, fy)."""
+    return (v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy)
+            + v10 * (1 - fx) * fy + v11 * fx * fy)
+
+
+def place_views(sx, sy, sw, sh):
+    """sample_views' placement: the integer corners (x0, y0, x1, y1) and
+    the fractions (fx, fy) of (sx, sy)[..., v] clamped to (sw, sh)[v]."""
     w_max = sw - 1.0
     h_max = sh - 1.0
     sx = torch.minimum(torch.clamp(torch.nan_to_num(sx, nan=0.0), min=0.0),
@@ -144,23 +157,23 @@ def sample_views(src_imgs, sx, sy, sw, sh):
     y0 = y0.long()
     x1 = torch.minimum(x0 + 1, w_max.long())
     y1 = torch.minimum(y0 + 1, h_max.long())
+    return x0, y0, x1, y1, fx, fy
+
+
+def gather_views(src_imgs, x0, y0, x1, y1):
+    """View v's pixels (y0, x0), (y0, x1), (y1, x0), (y1, x1) at the
+    integer positions [..., v]."""
+    V, Hs, Ws = src_imgs.shape
     base = torch.arange(V, device=src_imgs.device) * (Hs * Ws)
     flat = src_imgs.reshape(-1)
-    v00 = flat[base + y0 * Ws + x0]
-    v01 = flat[base + y0 * Ws + x1]
-    v10 = flat[base + y1 * Ws + x0]
-    v11 = flat[base + y1 * Ws + x1]
-    return (v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy)
-            + v10 * (1 - fx) * fy + v11 * fx * fy)
+    return (flat[base + y0 * Ws + x0], flat[base + y0 * Ws + x1],
+            flat[base + y1 * Ws + x0], flat[base + y1 * Ws + x1])
 
 
-def _zncc_grids(ref_center, tap_values, x, y, src_imgs, vg, planes, params):
-    """The plain ZNCC over explicit coordinate grids, all V views at once
-    (views on the last axis). `ref_center`/`tap_values` and `x`/`y` share
-    a grid shape (full image or parity-packed half grid); `planes` is
-    [..., *grid, 4]; returns [..., *grid, V]."""
-    cost_max = params.cost_max
-
+def warper(x, y, vg: ViewGeometry, planes):
+    """warp(di, dj) -> (sx, sy), each [..., *grid, V]: tap (di, dj) of
+    every pixel of the grid (x, y) through each hypothesis' plane-induced
+    homography into every view. `planes` is [..., *grid, 4]."""
     # rank-1 homography piece per hypothesis: m = Kr^{-T} n, [..., *grid, 3]
     m = geo.matvec(vg.KrT, planes[..., :3])
     inv_w = 1.0 / planes[..., 3]
@@ -182,6 +195,34 @@ def _zncc_grids(ref_center, tap_values, x, y, src_imgs, vg, planes, params):
         pz = aq2 - B[:, 2] * mq
         return px / pz, py / pz
 
+    return warp
+
+
+def zncc_from_sums(sum_w, sum_ref, sum_ref_ref, sum_src, sum_src_src,
+                   sum_ref_src, in_bounds, params: PatchMatchParams):
+    """The ZNCC cost from the bilateral-weighted moments: clip(1 - covar /
+    sqrt(max(var_ref * var_src, 1e-30)), 0, cost_max), cost_max where a
+    variance is below min_var or the centre is out of bounds."""
+    cost_max = params.cost_max
+    inv_sum_w = 1.0 / sum_w
+    mean_ref = sum_ref * inv_sum_w
+    mean_src = sum_src * inv_sum_w
+    var_ref = sum_ref_ref * inv_sum_w - mean_ref * mean_ref
+    var_src = sum_src_src * inv_sum_w - mean_src * mean_src
+    covar = sum_ref_src * inv_sum_w - mean_ref * mean_src
+    denom = torch.sqrt(torch.clamp(var_ref * var_src, min=1e-30))
+    ncc = torch.clamp(1.0 - covar / denom, 0.0, cost_max)
+    degenerate = (var_ref < params.min_var) | (var_src < params.min_var)
+    cost = torch.where(degenerate, cost_max, ncc)
+    return torch.where(in_bounds, cost, cost_max)
+
+
+def _zncc_grids(ref_center, tap_values, x, y, src_imgs, vg, planes, params):
+    """The plain ZNCC over explicit coordinate grids, all V views at once
+    (views on the last axis). `ref_center`/`tap_values` and `x`/`y` share
+    a grid shape (full image or parity-packed half grid); `planes` is
+    [..., *grid, 4]; returns [..., *grid, V]."""
+    warp = warper(x, y, vg, planes)
     sw, sh = vg.src_width, vg.src_height
     # centre bounds check (ACMMP.cu:367-370): pt at the pixel itself
     cx, cy = warp(0.0, 0.0)
@@ -209,18 +250,8 @@ def _zncc_grids(ref_center, tap_values, x, y, src_imgs, vg, planes, params):
         sum_src_src = sum_src_src + weight * src_c * src_c
         sum_ref_src = sum_ref_src + weight * ref_c * src_c
         sum_w = sum_w + weight
-
-    inv_sum_w = 1.0 / sum_w
-    mean_ref = sum_ref * inv_sum_w
-    mean_src = sum_src * inv_sum_w
-    var_ref = sum_ref_ref * inv_sum_w - mean_ref * mean_ref
-    var_src = sum_src_src * inv_sum_w - mean_src * mean_src
-    covar = sum_ref_src * inv_sum_w - mean_ref * mean_src
-    denom = torch.sqrt(torch.clamp(var_ref * var_src, min=1e-30))
-    ncc = torch.clamp(1.0 - covar / denom, 0.0, cost_max)
-    degenerate = (var_ref < params.min_var) | (var_src < params.min_var)
-    cost = torch.where(degenerate, cost_max, ncc)
-    return torch.where(in_bounds, cost, cost_max)
+    return zncc_from_sums(sum_w, sum_ref, sum_ref_ref, sum_src, sum_src_src,
+                          sum_ref_src, in_bounds, params)
 
 
 def _shift_edge(img: torch.Tensor, dj: int, di: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Synthetic scenes with known geometry — the port's copy of
-``look_at_camera`` and ``textured_plane_scene`` from
-``acmmp_tpu/utils/synth.py`` (numpy only), and ``write_dense_folder``,
+``look_at_camera``, ``textured_plane_scene`` and ``textured_relief_scene``
+from ``acmmp_tpu/utils/synth.py`` (numpy only), and ``write_dense_folder``,
 which puts a scene on disk as a dense folder. The scene is generated in memory
 with an analytic texture, so every view is photo-consistent by
 construction and PatchMatch must recover the exact plane depth."""
@@ -87,6 +87,66 @@ def textured_plane_scene(
         images.append(texture(pw[..., 0], pw[..., 1]).astype(np.float32))
         cams.append(cam)
     return images, cams, plane_z
+
+
+def textured_relief_scene(
+    n_views=4, width=96, height=64, base_z=5.0, amp=0.35, seed=0, f=140.0,
+    depth_min=2.0, depth_max=10.0, spread=0.22, converge=False,
+):
+    """A smooth textured height-field surface z(x, y) = base_z +
+    amp * (sin(1.1 x) * cos(0.9 y) + 0.5 sin(2.3 x + 1)) rendered
+    analytically per view (Newton iteration along each ray), plus the
+    ground-truth depth map of view 0. `spread` is the half-width of the
+    camera baseline; with `converge` the cameras verge on (0, 0, base_z).
+    Returns (images, cams, gt_depth0 [H, W])."""
+    rng = np.random.default_rng(seed)
+    n_waves = 24
+    freqs = rng.uniform(0.5, 4.5, size=(n_waves, 2))
+    phases = rng.uniform(0, 2 * np.pi, size=n_waves)
+    amps = rng.uniform(0.3, 1.0, size=n_waves)
+
+    def texture(xw, yw):
+        val = np.zeros_like(xw)
+        for k in range(n_waves):
+            val += amps[k] * np.sin(freqs[k, 0] * xw + freqs[k, 1] * yw + phases[k])
+        val = val - val.min()
+        return 30.0 + 200.0 * val / max(val.max(), 1e-6)
+
+    def z_surf(xw, yw):
+        return base_z + amp * (np.sin(1.1 * xw) * np.cos(0.9 * yw)
+                               + 0.5 * np.sin(2.3 * xw + 1.0))
+
+    cams: List[NumpyCamera] = []
+    images: List[np.ndarray] = []
+    gt_depth0 = None
+    offsets = np.linspace(-spread, spread, n_views)
+    for i in range(n_views):
+        eye = np.array([offsets[i], 0.013 * i + 0.004 * (i % 2), 0.0])
+        target = (np.array([0.0, 0.0, base_z]) if converge
+                  else eye + np.array([0.0, 0.0, 1.0]))
+        cam = look_at_camera(eye, target, f=f, width=width, height=height,
+                             depth_min=depth_min, depth_max=depth_max)
+        xs, ys = np.meshgrid(np.arange(width, dtype=np.float64),
+                             np.arange(height, dtype=np.float64))
+        dirs_cam = np.stack(
+            [(xs - cam.K[0, 2]) / cam.K[0, 0],
+             (ys - cam.K[1, 2]) / cam.K[1, 1],
+             np.ones_like(xs)], axis=-1)
+        dirs_world = dirs_cam @ cam.R
+        center = -cam.R.T @ cam.t
+        # Newton on s: center_z + s*dz - z_surf(x(s), y(s)) = 0
+        s = (base_z - center[2]) / dirs_world[..., 2]
+        for _ in range(25):
+            p = center[None, None, :] + s[..., None] * dirs_world
+            g = p[..., 2] - z_surf(p[..., 0], p[..., 1])
+            s = s - 0.8 * g / dirs_world[..., 2]
+        p = center[None, None, :] + s[..., None] * dirs_world
+        images.append(texture(p[..., 0], p[..., 1]).astype(np.float32))
+        cams.append(cam)
+        if i == 0:
+            # depth = z-coordinate in the camera frame
+            gt_depth0 = ((p - center) @ cam.R.T)[..., 2].astype(np.float32)
+    return images, cams, gt_depth0
 
 
 def write_dense_folder(dense: str, images, cams) -> str:

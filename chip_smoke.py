@@ -52,6 +52,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      fusion through the plain sampler (the PLY bytes must be equal), and
      a prior-aware fusion with a x1.002 second candidate through the
      kernel and through the plain version (equal PLY bytes);
+  9. (run after 6) the ZNCC cost decomposition and the lane probes:
+     the six probes of csrc/probes.cu bitwise against their plain
+     versions and numpy, on the probe tool's words and on
+     nan_take_probe's adversarial ones, timed beside torch.gather /
+     torch.where; prop_ablate's converged relief field built at its
+     defaults (1600x1184, 8 sources) and its main path run (the f32
+     gather probe, every ablation mode timed, then mosaic_probe) with the
+     launch counts reset; then, on that field and on phase 6's random
+     K=8 field, each mode of csrc/ablate.cu against its plain version
+     (full bitwise equal to zncc.cu K=8, f32take bitwise equal to full,
+     nobounds at the ZNCC bar, noext and noscan within 1e-5 (1 + |x|)),
+     timed, and the decomposition printed (loads = full - noscan,
+     bilinear and moments = full - noext, per-tap placement = full -
+     nobounds, u8 against f32 reads = f32take - full); last, each mode's
+     ptxas registers and its SASS LDG and MUFU.RCP counts (cuobjdump);
 then the kernel table as one JSON line, the card line and the result
 line.
 
@@ -65,6 +80,7 @@ import json
 import logging
 import math
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -129,6 +145,27 @@ CHAIN_VIEWS = (0, 4, 8)
 # (PERF.md, Findings) and would fail the median bar; at least a quarter of
 # a view's pixels must be fused
 FUSED_MEDIAN_BAR, FUSED_SHARE_BAR, FUSED_MIN_VIEW_SHARE = 0.005, 0.99, 0.25
+
+# phase 9: the ZNCC cost decomposition (csrc/ablate.cu) and the lane
+# probes (csrc/probes.cu), with the TPU kernels they replace. FP32
+# operations per (hypothesis, view, tap, pixel) of each ablation mode, from
+# the tally in csrc/ablate.cu's source note, and the bytes per source pixel
+# each reads (none in noscan, f32 words in f32take)
+ABLATE_TPU_KERNEL = "tools/prop_ablate.py:97"
+ABLATE_OPS_PER_TAP_EVAL = {"full": 41, "noext": 26, "nobounds": 18,
+                           "noscan": 41, "f32take": 41}
+ABLATE_SRC_BYTES = {"full": 1, "noext": 1, "nobounds": 1, "noscan": 0,
+                    "f32take": 4}
+# modes held to their plain version within 1e-5 (1 + |x|); the others at
+# the ZNCC bar
+ABLATE_CLOSE = ("noext", "noscan")
+ABLATE_SHAPE = (1600, 1184, 8)      # the tool's defaults: width, height, views
+PROBE_TPU_KERNEL = {"taa_i32_axis1": "tools/mosaic_probe.py:36",
+                    "taa_i32_axis0": "tools/mosaic_probe.py:53",
+                    "dyn_lane_shift": "tools/mosaic_probe.py:40",
+                    "unpack4_static": "tools/mosaic_probe.py:45",
+                    "take_select_i32": "tools/prop_ablate.py:451",
+                    "take_select_f32": "tools/prop_ablate.py:455"}
 
 TPU_KERNEL = {1: "acmmp_tpu/ops/pallas_ncc.py:108",
               2: "acmmp_tpu/ops/pallas_ncc.py:542",
@@ -558,6 +595,353 @@ def run_pipeline_phase(scene, dev, work, ref_err):
     assert len(sampler_ms) == n_views, sampler_ms
     assert len(dual_pts) > 0 and dual["auto"][0] == dual["plain"][0]
     return {"launches": launches, "dual_launches": dual["auto"][2]}
+
+
+def probe_numpy(name, w, idx, shift, sel):
+    """A probe's formula in numpy (tools/mosaic_probe.py:70-75 for the
+    lane gather and the shift)."""
+    u = w.view(np.uint32)
+    if name == "taa_i32_axis1":
+        return np.take_along_axis(w, idx, axis=1)
+    if name == "taa_i32_axis0":
+        return np.take_along_axis(w, idx % 8, axis=0)
+    if name == "dyn_lane_shift":
+        return ((u >> shift) & 0xFF).astype(np.float32)
+    if name == "unpack4_static":
+        acc = np.zeros(w.shape, np.float32)
+        for k in range(4):
+            acc = acc + ((u >> (8 * k)) & 0xFF).astype(np.float32)
+        return acc
+    g = np.take_along_axis(w, idx, axis=1)
+    if name == "take_select_i32":
+        return np.where(sel, g, w)
+    return np.where(sel, g.view(np.float32), w.view(np.float32)).view(
+        np.int32)
+
+
+def ablate_bound(inputs, mode, Hg, W, T):
+    """(bound ms, what bounds it) of one ablation launch on the K = 8
+    packed grid with T taps: the mode's FP32 operations at the FP32 peak,
+    or the bytes it must move (planes, the sources it reads, tap weights,
+    reference sums and costs) at the memory rate."""
+    V, Hs, Ws = inputs.src_imgs.shape
+    nv = int(inputs.view_mask.sum())
+    evals = 8 * nv * T * Hg * W
+    nbytes = (8 * Hg * W * 16 + ABLATE_SRC_BYTES[mode] * nv * Hs * Ws
+              + 2 * T * Hg * W * 4 + 3 * Hg * W * 4 + 8 * Hg * W * V * 4)
+    t_ops = evals * ABLATE_OPS_PER_TAP_EVAL[mode] / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sass_report(lib, pattern):
+    """{function name: {"all": counts, "loop": counts}} for every kernel
+    in `lib` whose name matches `pattern`, from its SASS (cuobjdump, where
+    the toolkit has it; None where it does not). counts = (LDG, byte
+    LDG, MUFU.RCP); "loop" counts only the instructions between a
+    backward branch and its target, the tap loop (the hypothesis loops
+    are unrolled)."""
+    import re
+
+    from acmmp_tpu_torch.kernels import _build
+
+    tool = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            if name:
+                funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+
+    def counts(ins):
+        ldg = [i for i in ins if re.search(r"\bLDG\.", i)]
+        return (len(ldg), sum(".U8" in i for i in ldg),
+                sum("MUFU.RCP" in i for i in ins))
+
+    out = {}
+    for name, instrs in funcs.items():
+        loops = []
+        for addr, ins in instrs:
+            # a branch back to an earlier address (not the trap at the
+            # end, a branch to itself) closes a loop
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)\s*$", ins)
+            if m and int(m.group(1), 16) < addr:
+                loops.append((int(m.group(1), 16), addr))
+        in_loop = [ins for addr, ins in instrs
+                   if any(lo <= addr <= hi for lo, hi in loops)]
+        out[name] = {"all": counts([i for _, i in instrs]),
+                     "loop": counts(in_loop) if loops else None}
+    return out
+
+
+def ablate_mode_of(fn_name):
+    """The ablation mode of a mangled ablate_kernel<8, Mode, Src> name."""
+    import re
+
+    m = re.search(r"ModeE(\d)E([hf])E", fn_name)
+    if not m:
+        return fn_name
+    if m.group(2) == "f":
+        return "f32take"
+    return ("full", "noext", "nobounds", "noscan")[int(m.group(1))]
+
+
+def ptxas_registers(text):
+    """{entry function: registers} from nvcc's -Xptxas -v output."""
+    import re
+
+    regs, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    return regs
+
+
+def run_ablation_phase(dev, big, random8, time_ms):
+    """Phase 9: the lane probes, then the ZNCC cost decomposition. The
+    probes are held bitwise to their plain versions on the card and to
+    numpy, on the probe tool's words and nan_take_probe's adversarial
+    ones, and timed beside torch.gather / torch.where. The tool's fields
+    are built at its defaults (1600x1184, 8 sources) and its main path
+    (nan_take_probe, then every mode timed; then mosaic_probe) runs with
+    the launch counts reset. Then on the tool's converged field and on
+    phase 6's random K = 8 field (`random8`, packed at off0 = 0 on the
+    scene `big`) each mode is held to its plain version, `full` bitwise
+    to zncc.cu and f32take bitwise to `full`, each mode is timed, and the
+    decomposition printed; last, each mode's registers and SASS counts.
+    Returns the JSON rows of the modes and the probes."""
+    import torch
+
+    from acmmp_tpu_torch.kernels import _build
+    from acmmp_tpu_torch.ops import ablate, cuda_ablate, cuda_ncc
+    from acmmp_tpu_torch.ops import cuda_probes, probes
+    from acmmp_tpu_torch.ops import ncc as ncc_ops
+    from acmmp_tpu_torch.tools import mosaic_probe, prop_ablate
+
+    rows = []
+    # ---- 9a: the probes against plain and numpy, and their times ----
+    log("phase 9a: lane probes vs plain (on the card) and numpy, bitwise")
+    words, idx, sh = mosaic_probe.probe_inputs(0)
+    sel = np.random.default_rng(1).integers(0, 2, (8, 128)) == 1
+    adv_w, adv_idx, adv_sel = prop_ablate.adversarial_words()
+    sets = {"words": dict(w=words, idx=idx, shift=sh, sel=sel),
+            "adversarial": dict(w=adv_w, idx=adv_idx, shift=sh, sel=adv_sel)}
+    probe_err = {name: 0 for name in probes.PROBES}
+    for kind, arrs in sets.items():
+        on_dev = {k: torch.as_tensor(a, device=dev) for k, a in arrs.items()}
+        outs = {}
+        for name in probes.PROBES:
+            args = [on_dev[a] for a in ("w",) + cuda_probes.ARGS[name]]
+            got = cuda_probes.probe_cuda(name, *args)
+            plain = probes.PLAIN[name](*args)
+            want = probe_numpy(name, **arrs)
+            same = (torch.equal(got.view(torch.int32), plain.view(torch.int32))
+                    and np.array_equal(got.cpu().numpy().view(np.int32),
+                                       want.view(np.int32)))
+            # |difference| of the 32-bit patterns (0 when bitwise equal)
+            probe_err[name] = max(probe_err[name], (
+                got.view(torch.int32).long()
+                - plain.view(torch.int32).long()).abs().max().item())
+            log(f"  {kind} {name}: bitwise plain and numpy {same}")
+            assert same, (kind, name)
+            outs[name] = got
+        assert torch.equal(outs["take_select_f32"], outs["take_select_i32"])
+
+    on_dev = {k: torch.as_tensor(a, device=dev)
+              for k, a in sets["adversarial"].items()}
+    idx64 = on_dev["idx"].long()
+    idx64_rows = torch.remainder(idx64, 8)
+    wf = on_dev["w"].view(torch.float32)
+    library = {
+        "taa_i32_axis1": lambda: torch.gather(on_dev["w"], 1, idx64),
+        "taa_i32_axis0": lambda: torch.gather(on_dev["w"], 0, idx64_rows),
+        "take_select_i32": lambda: torch.where(
+            on_dev["sel"], torch.gather(on_dev["w"], 1, idx64), on_dev["w"]),
+        "take_select_f32": lambda: torch.where(
+            on_dev["sel"], torch.gather(wf, 1, idx64), wf)}
+    probe_times = {}
+    for name in probes.PROBES:
+        args = [on_dev[a] for a in ("w",) + cuda_probes.ARGS[name]]
+        ms = time_ms(lambda: cuda_probes.probe_cuda(name, *args), 200)
+        plain_ms = time_ms(lambda: probes.PLAIN[name](*args), 200)
+        lib_ms = (time_ms(library[name], 200) if name in library else None)
+        nbytes = sum(on_dev[a].numel() * on_dev[a].element_size()
+                     for a in ("w",) + cuda_probes.ARGS[name]) + 8 * 128 * 4
+        probe_times[name] = (ms, plain_ms, lib_ms, nbytes)
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"{nbytes} bytes")
+
+    # ---- 9b: the tool's fields and its main path, counted ----
+    width, height, views = ABLATE_SHAPE
+    t0 = time.perf_counter()
+    fields = prop_ablate.build_fields(height, width, views, dev)
+    log(f"phase 9b: prop_ablate's fields at {width}x{height}, {views} "
+        f"sources, built in {time.perf_counter() - t0:.2f} s (host)")
+    torch.cuda.synchronize()
+    cuda_ablate.reset_launch_counts()
+    cuda_probes.reset_launch_counts()
+    tool_ms, probe_ok = prop_ablate.run_modes(fields, ablate.MODES, 3)
+    mosaic_rc = mosaic_probe.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    ablate_counts = dict(cuda_ablate.launches)
+    probe_counts = dict(cuda_probes.launches)
+    log(f"  launches: ablate {ablate_counts}, probes {probe_counts}; "
+        f"tool ms per call {tool_ms}")
+    assert probe_ok and mosaic_rc == 0
+    assert all(v > 0 for v in ablate_counts.values()), ablate_counts
+    assert all(v > 0 for v in probe_counts.values()), probe_counts
+
+    # ---- 9c: each mode against its plain version, timed, on two fields ----
+    params, inputs, vg, cand, off0 = fields
+    field_sets = (("converged relief field", inputs, cand, off0),
+                  ("phase 6 random field", big, random8, 0))
+    errs = {m: 0.0 for m in ablate.MODES}
+    mode_times = {}
+    for label, inp, planes, off in field_sets:
+        fvg = ncc_ops.make_view_geometry(inp.ref_cam, inp.src_cams)
+        nv = int(inp.view_mask.sum())
+        prep = cuda_ablate.prepare(inp.ref_img, inp.src_imgs, fvg, params,
+                                   off)
+        _, Hg, W, _ = planes.shape
+        log(f"phase 9c: ablation modes vs plain, {label}, grid {Hg}x{W}, "
+            f"{nv} views")
+        got = {m: cuda_ablate.ablate_cuda(m, planes, prep, params, nv)
+               for m in ablate.MODES}
+        zncc = cuda_ncc.multiview_zncc_cuda(
+            inp.ref_img, inp.src_imgs, fvg, planes, params,
+            row_pack_off=off, n_views=nv, prep=prep.zncc)
+        full_bitwise = bool(torch.equal(got["full"], zncc))
+        f32_bitwise = bool(torch.equal(got["f32take"], got["full"]))
+        log(f"  full == zncc.cu K=8 bitwise {full_bitwise}; f32take == full "
+            f"bitwise {f32_bitwise}")
+        assert full_bitwise and f32_bitwise, label
+        times = {}
+        for m in ablate.MODES:
+            want = ablate.ablate_packed(m, inp.ref_img, inp.src_imgs, fvg,
+                                        planes, params, off)
+            a, b = got[m][..., :nv], want[..., :nv]
+            d = (a - b).abs()
+            errs[m] = max(errs[m], d.max().item())
+            if m in ABLATE_CLOSE:
+                bar = "1e-5 (1 + |x|)"
+                ok = bool((d <= 1e-5 * (1 + b.abs())).all())
+                bad = (d > 1e-5 * (1 + b.abs())).float().mean().item()
+            else:
+                bar = "ZNCC"
+                bad = (d > ZNCC_ATOL + ZNCC_RTOL * b.abs()).float().mean(
+                ).item()
+                ok = bad < ZNCC_MAX_FRAC
+            at_max = (a == params.cost_max).float().mean().item()
+            del want, a, b, d
+
+            def kern(m=m):
+                return cuda_ablate.ablate_cuda(m, planes, prep, params, nv)
+
+            ms = time_ms(kern, 20)
+            b_ms, b_by = ablate_bound(inp, m, Hg, W,
+                                      len(params.tap_offsets) ** 2)
+            times[m] = ms
+            row = [ms, b_ms, b_by]
+            if label.startswith("converged"):
+                row.append(time_ms(lambda m=m: ablate.ablate_packed(
+                    m, inp.ref_img, inp.src_imgs, fvg, planes, params, off),
+                    1))
+                mode_times[m] = row
+            log(f"  {m}: bad {bad:.2e} ({bar} bar) max|d| {errs[m]:.3e}, "
+                f"at cost_max {at_max:.4f}; kernel {ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by})"
+                + (f", plain {row[3]:.3f} ms" if len(row) > 3 else ""))
+            assert ok, (label, m, bad)
+        zncc_ms = time_ms(lambda: cuda_ncc.multiview_zncc_cuda(
+            inp.ref_img, inp.src_imgs, fvg, planes, params, row_pack_off=off,
+            n_views=nv, prep=prep.zncc), 20)
+        full = times["full"]
+        log(f"  decomposition of zncc.cu K=8 ({label}): full {full:.4f} ms "
+            f"(zncc.cu itself {zncc_ms:.4f} ms); loads (full - noscan) "
+            f"{full - times['noscan']:.4f} ms = "
+            f"{(full - times['noscan']) / full:.3f}; bilinear and moments "
+            f"(full - noext) {full - times['noext']:.4f} ms = "
+            f"{(full - times['noext']) / full:.3f}; per-tap placement "
+            f"(full - nobounds) {full - times['nobounds']:.4f} ms = "
+            f"{(full - times['nobounds']) / full:.3f}; u8 against f32 reads "
+            f"(f32take - full) {times['f32take'] - full:.4f} ms = "
+            f"{(times['f32take'] - full) / full:.3f}")
+        del prep, got, zncc
+
+    # ---- 9d: what each mode compiled to ----
+    regs = ptxas_registers(_build.BUILD_LOG.get("ablate", ""))
+    regs.update(ptxas_registers(_build.BUILD_LOG.get("zncc", "")))
+    sass = sass_report(_build._target("ablate"), "ablate_kernel")
+    zsass = sass_report(_build._target("zncc"), r"zncc_kernelILi8E")
+    for fn_name, r in sorted(regs.items()):
+        if "ablate_kernel" in fn_name or "zncc_kernelILi8E" in fn_name:
+            mode = (ablate_mode_of(fn_name) if "ablate" in fn_name
+                    else "zncc.cu K=8")
+            # 128-thread blocks an SM holds by registers: 65,536 of them,
+            # allocated per warp in units of 256
+            per_block = 4 * -(-r * 32 // 256) * 256
+            blocks = min(65536 // per_block, 16)
+            log(f"phase 9d: {mode}: {r} registers, {blocks} blocks "
+                f"({4 * blocks} warps) per SM by registers")
+    if sass is None:
+        log("phase 9d: cuobjdump not found; no SASS counts")
+    else:
+        for fn_name, c in {**sass, **zsass}.items():
+            mode = (ablate_mode_of(fn_name) if "ablate" in fn_name
+                    else "zncc.cu K=8")
+            loop = ("no backward branch found" if c["loop"] is None else
+                    "LDG {} (byte loads {}), MUFU.RCP {}".format(*c["loop"]))
+            log("phase 9d: {}: SASS LDG {} (byte loads {}), MUFU.RCP {}; "
+                "in the tap loop: {}".format(mode, *c["all"], loop))
+        # each ablation removed what it claims from the tap loop, and nvcc
+        # removed nothing more: the same byte loads in full, noext and
+        # nobounds, none in noscan (nor anywhere in it), f32 words instead
+        # in f32take; the same reciprocals but in nobounds, which has none
+        loop = {ablate_mode_of(n): c["loop"] for n, c in sass.items()}
+        assert all(v is not None for v in loop.values()), loop
+        ldg, u8, rcp = ({m: v[i] for m, v in loop.items()} for i in range(3))
+        assert u8["full"] == u8["noext"] == u8["nobounds"] > 0, loop
+        assert u8["noscan"] == u8["f32take"] == 0, loop
+        assert ldg["f32take"] == ldg["full"], loop
+        assert rcp["full"] == rcp["noext"] == rcp["noscan"] == rcp[
+            "f32take"] > 0 == rcp["nobounds"], loop
+        assert [c["all"][1] for n, c in sass.items()
+                if ablate_mode_of(n) == "noscan"] == [0], sass
+
+    for m in ablate.MODES:
+        ms, b_ms, b_by, plain_ms = mode_times[m]
+        rows.append({
+            "name": f"ablate_{m}", "route": "cuda",
+            "source": "acmmp_tpu_torch/csrc/ablate.cu",
+            "replaces": ABLATE_TPU_KERNEL, "launches": ablate_counts[m],
+            "max_abs_err": errs[m], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    for name in probes.PROBES:
+        ms, plain_ms, lib_ms, nbytes = probe_times[name]
+        rows.append({
+            "name": f"probe_{name}", "route": "cuda",
+            "source": "acmmp_tpu_torch/csrc/probes.cu",
+            "replaces": PROBE_TPU_KERNEL[name],
+            "launches": probe_counts[name],
+            "max_abs_err": float(probe_err[name]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": lib_ms})
+    return rows
 
 
 def main() -> int:
@@ -1104,6 +1488,13 @@ def main() -> int:
                 f"{b_ms / ms:.3f} of it")
             del maps, rr, cc, valid
 
+    # ---- phase 9: the ZNCC cost decomposition and the lane probes ----
+    # phase 6's random K = 8 field at 1600x1184 (same key), packed
+    random8 = parity.pack_rows_c(random_planes(big, 8, 48, 0.125, 0.25),
+                                 0).contiguous()
+    ablation_rows = run_ablation_phase(dev, big, random8, time_ms)
+    del random8
+
     # ---- phase 7: the per-view two-scale chain at full width ----
     chain = run_chain({size: ([images[i] for i in CHAIN_VIEWS],
                               [cams[i] for i in CHAIN_VIEWS], pz)
@@ -1159,6 +1550,7 @@ def main() -> int:
             "replaces": SAMPLE_TPU_KERNEL, "launches": launches,
             "max_abs_err": sample_err[C], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    rows += ablation_rows
     assert all(math.isfinite(r["ms"]) for r in rows)
     log(f"chip_smoke wall {time.perf_counter() - t_script:.1f} s")
 

@@ -40,7 +40,8 @@ assert "acmmp_tpu_torch.ops.cuda_ncc" in sys.modules
 assert "acmmp_tpu_torch.ops.cuda_geom" in sys.modules
 assert "acmmp_tpu_torch.ops.cuda_sample" in sys.modules
 for m in ("io.dmb", "io.ply", "io.priors", "utils.log", "engine.fusion",
-          "pipeline.scheduler", "cli"):
+          "pipeline.scheduler", "cli", "tools.prop_ablate",
+          "tools.mosaic_probe", "ops.cuda_ablate", "ops.cuda_probes"):
     assert "acmmp_tpu_torch." + m in sys.modules, m
 """
 
@@ -65,6 +66,11 @@ def test_chip_smoke_imports_neither_jax_nor_acmmp_tpu():
     assert "acmmp_tpu_torch.ops.cuda_ncc" in mods
     assert "acmmp_tpu_torch.ops.cuda_geom" in mods
     assert "acmmp_tpu_torch.ops.cuda_sample" in mods
+    assert "acmmp_tpu_torch.ops.cuda_ablate" in mods
+    assert "acmmp_tpu_torch.ops.cuda_probes" in mods
+    # and the tools through their entry points
+    assert "acmmp_tpu_torch.tools.prop_ablate" in mods
+    assert "acmmp_tpu_torch.tools.mosaic_probe" in mods
     # and the pipeline through its entry point
     assert "acmmp_tpu_torch.pipeline.scheduler" in mods
     assert not [m for m in mods if m.split(".")[0] in ("jax", "acmmp_tpu")]
