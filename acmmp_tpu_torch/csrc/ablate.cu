@@ -72,42 +72,13 @@ __device__ __forceinline__ float nan_to_zero(float a) {
   return isnan(a) ? 0.0f : a;
 }
 
-// zncc.cu's sample, on u8 or f32 sources: bilinear read of the view at
-// the homogeneous point (px, py, pz), clamped to [0, sx_max] x [0, sy_max].
-template <typename Src>
-__device__ __forceinline__ float sample(const Src* __restrict__ img, int Ws,
-                                        float px, float py, float pz,
-                                        float sx_max, float sy_max,
-                                        int xi_max, int yi_max) {
-  const float inv_pz = __frcp_rn(pz);
-  // NaN guard before the clamp, so no index is formed from a NaN
-  const float sx =
-      fminf(fmaxf(nan_to_zero(__fmul_rn(px, inv_pz)), 0.0f), sx_max);
-  const float sy =
-      fminf(fmaxf(nan_to_zero(__fmul_rn(py, inv_pz)), 0.0f), sy_max);
-  const float xf = floorf(sx);
-  const float yf = floorf(sy);
-  const float fx = __fsub_rn(sx, xf);
-  const float fy = __fsub_rn(sy, yf);
-  const int x0 = (int)xf;
-  const int y0 = (int)yf;
-  const int x1 = min(x0 + 1, xi_max);
-  const int y1 = min(y0 + 1, yi_max);
-  const float v00 = (float)__ldg(img + (size_t)y0 * Ws + x0);
-  const float v01 = (float)__ldg(img + (size_t)y1 * Ws + x0);
-  const float v10 = (float)__ldg(img + (size_t)y0 * Ws + x1);
-  const float v11 = (float)__ldg(img + (size_t)y1 * Ws + x1);
-  const float a0 = __fsub_rn(1.0f, fx);
-  const float top = __fmaf_rn(fx, v10, __fmul_rn(a0, v00));
-  const float bot = __fmaf_rn(fx, v11, __fmul_rn(a0, v01));
-  return __fmaf_rn(fy, bot, __fmul_rn(__fsub_rn(1.0f, fy), top));
-}
-
-// sample's placement alone: the clamped integer corner and fractions
+// sample's placement: the clamped integer corner and the fractions of the
+// homogeneous point (px, py, pz) in [0, sx_max] x [0, sy_max]
 __device__ __forceinline__ void place(float px, float py, float pz,
                                       float sx_max, float sy_max, int& x0,
                                       int& y0, float& fx, float& fy) {
   const float inv_pz = __frcp_rn(pz);
+  // NaN guard before the clamp, so no index is formed from a NaN
   const float sx =
       fminf(fmaxf(nan_to_zero(__fmul_rn(px, inv_pz)), 0.0f), sx_max);
   const float sy =
@@ -120,6 +91,52 @@ __device__ __forceinline__ void place(float px, float py, float pz,
   y0 = (int)yf;
 }
 
+// the offsets of the four pixels a bilinear read at corner (x0, y0) takes,
+// (x0, y0), (x0, y1), (x1, y0), (x1, y1), the far side clamped to the view
+__device__ __forceinline__ void corners(int Ws, int x0, int y0, int xi_max,
+                                        int yi_max, size_t o[4]) {
+  const int x1 = min(x0 + 1, xi_max);
+  const int y1 = min(y0 + 1, yi_max);
+  o[0] = (size_t)y0 * Ws + x0;
+  o[1] = (size_t)y1 * Ws + x0;
+  o[2] = (size_t)y0 * Ws + x1;
+  o[3] = (size_t)y1 * Ws + x1;
+}
+
+__device__ __forceinline__ float bilerp(float v00, float v01, float v10,
+                                        float v11, float fx, float fy) {
+  const float a0 = __fsub_rn(1.0f, fx);
+  const float top = __fmaf_rn(fx, v10, __fmul_rn(a0, v00));
+  const float bot = __fmaf_rn(fx, v11, __fmul_rn(a0, v01));
+  return __fmaf_rn(fy, bot, __fmul_rn(__fsub_rn(1.0f, fy), top));
+}
+
+// sample's reads and bilinear at a given corner and fractions (nobounds
+// calls it with tap 0's fractions)
+template <typename Src>
+__device__ __forceinline__ float sample_at(const Src* __restrict__ img,
+                                           int Ws, int x0, int y0, float fx,
+                                           float fy, int xi_max,
+                                           int yi_max) {
+  size_t o[4];
+  corners(Ws, x0, y0, xi_max, yi_max, o);
+  return bilerp((float)__ldg(img + o[0]), (float)__ldg(img + o[1]),
+                (float)__ldg(img + o[2]), (float)__ldg(img + o[3]), fx, fy);
+}
+
+// zncc.cu's sample, on u8 or f32 sources: bilinear read of the view at
+// the homogeneous point (px, py, pz)
+template <typename Src>
+__device__ __forceinline__ float sample(const Src* __restrict__ img, int Ws,
+                                        float px, float py, float pz,
+                                        float sx_max, float sy_max,
+                                        int xi_max, int yi_max) {
+  int x0, y0;
+  float fx, fy;
+  place(px, py, pz, sx_max, sy_max, x0, y0, fx, fy);
+  return sample_at(img, Ws, x0, y0, fx, fy, xi_max, yi_max);
+}
+
 // noext: sample's placement and reads, the four values summed unweighted
 __device__ __forceinline__ float raw_sum(const uint8_t* __restrict__ img,
                                          int Ws, float px, float py,
@@ -129,30 +146,12 @@ __device__ __forceinline__ float raw_sum(const uint8_t* __restrict__ img,
   int x0, y0;
   float fx, fy;
   place(px, py, pz, sx_max, sy_max, x0, y0, fx, fy);
-  const int x1 = min(x0 + 1, xi_max);
-  const int y1 = min(y0 + 1, yi_max);
-  const float v00 = (float)__ldg(img + (size_t)y0 * Ws + x0);
-  const float v01 = (float)__ldg(img + (size_t)y1 * Ws + x0);
-  const float v10 = (float)__ldg(img + (size_t)y0 * Ws + x1);
-  const float v11 = (float)__ldg(img + (size_t)y1 * Ws + x1);
-  return __fadd_rn(__fadd_rn(__fadd_rn(v00, v01), v10), v11);
-}
-
-// nobounds: sample's reads and bilinear at a given corner and fractions
-__device__ __forceinline__ float sample_at(const uint8_t* __restrict__ img,
-                                           int Ws, int x0, int y0, float fx,
-                                           float fy, int xi_max,
-                                           int yi_max) {
-  const int x1 = min(x0 + 1, xi_max);
-  const int y1 = min(y0 + 1, yi_max);
-  const float v00 = (float)__ldg(img + (size_t)y0 * Ws + x0);
-  const float v01 = (float)__ldg(img + (size_t)y1 * Ws + x0);
-  const float v10 = (float)__ldg(img + (size_t)y0 * Ws + x1);
-  const float v11 = (float)__ldg(img + (size_t)y1 * Ws + x1);
-  const float a0 = __fsub_rn(1.0f, fx);
-  const float top = __fmaf_rn(fx, v10, __fmul_rn(a0, v00));
-  const float bot = __fmaf_rn(fx, v11, __fmul_rn(a0, v01));
-  return __fmaf_rn(fy, bot, __fmul_rn(__fsub_rn(1.0f, fy), top));
+  size_t o[4];
+  corners(Ws, x0, y0, xi_max, yi_max, o);
+  return __fadd_rn(__fadd_rn(__fadd_rn((float)__ldg(img + o[0]),
+                                       (float)__ldg(img + o[1])),
+                             (float)__ldg(img + o[2])),
+                   (float)__ldg(img + o[3]));
 }
 
 // noscan: sample's placement and arithmetic on zero samples; the four
@@ -165,14 +164,10 @@ __device__ __forceinline__ float zero_sample(int Ws, float px, float py,
   int x0, y0;
   float fx, fy;
   place(px, py, pz, sx_max, sy_max, x0, y0, fx, fy);
-  const int x1 = min(x0 + 1, xi_max);
-  const int y1 = min(y0 + 1, yi_max);
-  acc += (unsigned)(y0 * Ws + x0) + (unsigned)(y1 * Ws + x0) +
-         (unsigned)(y0 * Ws + x1) + (unsigned)(y1 * Ws + x1);
-  const float a0 = __fsub_rn(1.0f, fx);
-  const float top = __fmaf_rn(fx, zero, __fmul_rn(a0, zero));
-  const float bot = __fmaf_rn(fx, zero, __fmul_rn(a0, zero));
-  return __fmaf_rn(fy, bot, __fmul_rn(__fsub_rn(1.0f, fy), top));
+  size_t o[4];
+  corners(Ws, x0, y0, xi_max, yi_max, o);
+  acc += (unsigned)(o[0] + o[1] + o[2] + o[3]);
+  return bilerp(zero, zero, zero, zero, fx, fy);
 }
 
 template <int K, Mode M, typename Src>
@@ -359,54 +354,92 @@ __global__ void __launch_bounds__(kBlock) ablate_kernel(
   }
 }
 
+// A launch's dynamic shared memory (the kernel uses none) and shared-memory
+// carveout preference (percent of the SM's most, or -1 for the driver's
+// default) set how many blocks an SM holds: chip_smoke.py gives every mode
+// the occupancy of the one with the most registers, so that a mode's
+// saving is its removed work and not a fourth block per SM. Both are set
+// before each launch, so a launch with 0 and -1 runs as the plain <<<>>>.
 template <Mode M, typename Src>
-cudaError_t launch(const void* planes, const void* src, const void* w_taps,
-                   const void* wr_taps, const void* refsums,
-                   const void* consts, const void* taps, void* out, int V,
-                   int n_views, int Hg, int W, int Hs, int Ws, int T,
-                   float oy, float ox, int row_pack_off, float cost_max,
-                   float min_var, float zero, cudaStream_t stream) {
-  const int npix = Hg * W;
-  const dim3 grid((npix + kBlock - 1) / kBlock, V);
-  ablate_kernel<kK, M, Src><<<grid, kBlock, 0, stream>>>(
-      static_cast<const float4*>(planes), static_cast<const Src*>(src),
-      static_cast<const float*>(w_taps), static_cast<const float*>(wr_taps),
-      static_cast<const float*>(refsums), static_cast<const float*>(consts),
-      static_cast<const float2*>(taps), static_cast<float*>(out), V, n_views,
-      Hg, W, Hs, Ws, T, oy, ox, row_pack_off, cost_max, min_var, zero);
-  return cudaGetLastError();
+cudaError_t configure(int smem, int carveout) {
+  const auto fn = ablate_kernel<kK, M, Src>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(
+      fn, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
+}
+
+template <Mode M, typename Src>
+struct Variant {
+  static constexpr Mode kMode = M;
+  using Source = Src;
+};
+
+// f(Variant<...>{}) for a C mode number: 0 full, 1 noext, 2 nobounds,
+// 3 noscan (u8 sources), 4 f32take (full on f32 sources)
+template <typename F>
+int dispatch(int mode, F f) {
+  switch (mode) {
+    case 0:
+      return f(Variant<Mode::kFull, uint8_t>{});
+    case 1:
+      return f(Variant<Mode::kNoExt, uint8_t>{});
+    case 2:
+      return f(Variant<Mode::kNoBounds, uint8_t>{});
+    case 3:
+      return f(Variant<Mode::kNoScan, uint8_t>{});
+    case 4:
+      return f(Variant<Mode::kFull, float>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). `mode`: 0 full, 1 noext,
-// 2 nobounds, 3 noscan (u8 sources), 4 f32take (full on f32 sources).
-// K is 8. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for another mode.
+// Plain C entry points (loaded with ctypes); `mode` as in dispatch. K is
+// 8. The launch returns cudaGetLastError() after it, or the error of
+// setting the occupancy attributes, or cudaErrorInvalidValue for another
+// mode.
 extern "C" int acmmp_ablate_launch(
     int mode, const void* planes, const void* src, const void* w_taps,
     const void* wr_taps, const void* refsums, const void* consts,
     const void* taps, void* out, int V, int n_views, int Hg, int W, int Hs,
     int Ws, int T, float oy, float ox, int row_pack_off, float cost_max,
-    float min_var, float zero, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ACMMP_ABLATE_LAUNCH(M, SRC)                                         \
-  launch<M, SRC>(planes, src, w_taps, wr_taps, refsums, consts, taps, out, \
-                 V, n_views, Hg, W, Hs, Ws, T, oy, ox, row_pack_off,       \
-                 cost_max, min_var, zero, s)
-  switch (mode) {
-    case 0:
-      return ACMMP_ABLATE_LAUNCH(Mode::kFull, uint8_t);
-    case 1:
-      return ACMMP_ABLATE_LAUNCH(Mode::kNoExt, uint8_t);
-    case 2:
-      return ACMMP_ABLATE_LAUNCH(Mode::kNoBounds, uint8_t);
-    case 3:
-      return ACMMP_ABLATE_LAUNCH(Mode::kNoScan, uint8_t);
-    case 4:
-      return ACMMP_ABLATE_LAUNCH(Mode::kFull, float);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef ACMMP_ABLATE_LAUNCH
+    float min_var, float zero, int smem, int carveout, void* stream) {
+  return dispatch(mode, [&](auto variant) {
+    using Var = decltype(variant);
+    using Src = typename Var::Source;
+    cudaError_t e = configure<Var::kMode, Src>(smem, carveout);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int npix = Hg * W;
+    const dim3 grid((npix + kBlock - 1) / kBlock, V);
+    ablate_kernel<kK, Var::kMode, Src>
+        <<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float4*>(planes), static_cast<const Src*>(src),
+            static_cast<const float*>(w_taps),
+            static_cast<const float*>(wr_taps),
+            static_cast<const float*>(refsums),
+            static_cast<const float*>(consts),
+            static_cast<const float2*>(taps), static_cast<float*>(out), V,
+            n_views, Hg, W, Hs, Ws, T, oy, ox, row_pack_off, cost_max,
+            min_var, zero);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The blocks of `mode` an SM holds at the given dynamic shared memory and
+// carveout, by the runtime's occupancy calculator, into *blocks.
+extern "C" int acmmp_ablate_occupancy(int mode, int smem, int carveout,
+                                      int* blocks) {
+  return dispatch(mode, [&](auto variant) {
+    using Var = decltype(variant);
+    cudaError_t e = configure<Var::kMode, typename Var::Source>(smem,
+                                                                carveout);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, ablate_kernel<kK, Var::kMode, typename Var::Source>, kBlock,
+        smem));
+  });
 }

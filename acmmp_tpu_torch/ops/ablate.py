@@ -37,6 +37,7 @@ planes [K, Hg, W, 4] and returns [K, Hg, W, V], the port's ZNCC layout.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -47,6 +48,16 @@ from acmmp_tpu_torch.ops import parity
 MODES = ("full", "noext", "nobounds", "noscan", "f32take")
 # noscan's leak per unit of summed read offset (prop_ablate.py:337-344)
 LEAK = 1e-30
+
+# Parameters under which a mode's costs rest on the sums it keeps. At the
+# shipped min_var and cost_max they do not: noext's s_src sums four raw
+# values per tap, so var_src = s_src2 / sum_w - mean_src^2 is negative on
+# every pixel and every cost is cost_max; noscan's leak (below 5e-21) is
+# under f32's resolution at cost_max. With no variance floor and no cap,
+# noext's cost is clip(1 + mean_ref * mean_src / 1e-15, 0, inf), linear in
+# s_src wherever mean_ref > 0; with cost_max = 0, noscan's cost is its leak.
+EXPOSING = {"noext": {"min_var": -math.inf, "cost_max": math.inf},
+            "noscan": {"cost_max": 0.0}}
 
 
 def widen_sources(src_imgs: torch.Tensor) -> torch.Tensor:
@@ -70,6 +81,37 @@ def ablate_packed(mode: str, ref_img, src_imgs, vg: ncc_ops.ViewGeometry,
     sums, in_bounds, leak = source_sums(mode, ref_img, src_imgs, vg, planes,
                                         params, off0)
     return ncc_ops.zncc_from_sums(*sums, in_bounds, params) + leak
+
+
+def exposing_params(mode: str,
+                    params: PatchMatchParams) -> PatchMatchParams:
+    """`params` with EXPOSING[mode]'s min_var and cost_max."""
+    return dataclasses.replace(params, **EXPOSING[mode])
+
+
+def exposed_agreement(got: torch.Tensor, want: torch.Tensor,
+                      rtol: float = 1e-5):
+    """How closely costs `got` follow the plain `want` under exposing
+    params: (share of the informative costs within rtol of want, relative
+    to the larger of the two; share of the costs that are informative;
+    largest relative difference among them). A cost is informative where
+    either version gives a finite value other than 0 and 1 (there it is
+    linear in noext's s_src, or it is noscan's leak), or where one is
+    infinite (out of bounds) and the other not, which counts as outside."""
+    fin_g, fin_w = torch.isfinite(got), torch.isfinite(want)
+
+    def carries(x, fin):
+        return fin & (x != 0.0) & (x != 1.0)
+
+    info = carries(got, fin_g) | carries(want, fin_w) | (fin_g != fin_w)
+    both = fin_g & fin_w
+    rel = torch.where(
+        both, (got - want).abs() / torch.maximum(got.abs(), want.abs()),
+        math.inf)[info]
+    if rel.numel() == 0:
+        return 0.0, 0.0, math.inf
+    return ((rel <= rtol).float().mean().item(),
+            info.float().mean().item(), rel.max().item())
 
 
 def source_sums(mode: str, ref_img, src_imgs, vg: ncc_ops.ViewGeometry,

@@ -64,17 +64,35 @@ def _lib():
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([ci] + [vp] * 8 + [ci] * 7
-                       + [cf, cf, ci, cf, cf, cf, vp])
+                       + [cf, cf, ci, cf, cf, cf, ci, ci, vp])
         fn.restype = ci
-    return fn
+        occ = lib.acmmp_ablate_occupancy
+        occ.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        occ.restype = ci
+    return lib
+
+
+def occupancy(mode: str, smem_bytes: int = 0, carveout: int = -1) -> int:
+    """Blocks of `mode` an SM holds at a launch's dynamic shared memory and
+    carveout preference (percent, -1 the driver's default), by the CUDA
+    runtime's occupancy calculator."""
+    blocks = ctypes.c_int(0)
+    rc = _lib().acmmp_ablate_occupancy(_MODE_ID[mode], int(smem_bytes),
+                                       int(carveout), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"ablate kernel occupancy failed: cudaError {rc}")
+    return blocks.value
 
 
 def ablate_cuda(mode: str, planes: torch.Tensor, prep: AblatePrep,
-                params: PatchMatchParams,
-                n_views: Optional[int] = None) -> torch.Tensor:
+                params: PatchMatchParams, n_views: Optional[int] = None,
+                smem_bytes: int = 0, carveout: int = -1) -> torch.Tensor:
     """Costs of `mode` through the kernel: packed planes [8, Hg, W, 4] ->
     [8, Hg, W, V]. `n_views` (host int) is the true view count; padded
-    view slots get cost_max."""
+    view slots get cost_max. `smem_bytes` of dynamic shared memory (the
+    kernel uses none) and a `carveout` preference in percent limit the
+    blocks per SM, to time modes of different register counts at one
+    occupancy; the defaults launch as zncc.cu does."""
     if mode not in MODES:
         raise ValueError(f"ablate kernel: mode must be one of {MODES}, "
                          f"got {mode!r}")
@@ -108,12 +126,13 @@ def ablate_cuda(mode: str, planes: torch.Tensor, prep: AblatePrep,
     out = torch.empty((K, Hg, W, V), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib()(_MODE_ID[mode], planes.data_ptr(), src.data_ptr(),
-                    zp.w_taps.data_ptr(), zp.wr_taps.data_ptr(),
-                    zp.refsums.data_ptr(), zp.consts.data_ptr(),
-                    zp.taps.data_ptr(), out.data_ptr(), V, nv, Hg, W, Hs,
-                    Ws, T, 0.0, 0.0, zp.row_pack_off, float(params.cost_max),
-                    float(params.min_var), 0.0, stream)
+        rc = _lib().acmmp_ablate_launch(
+            _MODE_ID[mode], planes.data_ptr(), src.data_ptr(),
+            zp.w_taps.data_ptr(), zp.wr_taps.data_ptr(),
+            zp.refsums.data_ptr(), zp.consts.data_ptr(), zp.taps.data_ptr(),
+            out.data_ptr(), V, nv, Hg, W, Hs, Ws, T, 0.0, 0.0,
+            zp.row_pack_off, float(params.cost_max), float(params.min_var),
+            0.0, int(smem_bytes), int(carveout), stream)
     if rc != 0:
         raise RuntimeError(f"ablate kernel launch failed: cudaError {rc}")
     launches[mode] += 1

@@ -14,6 +14,7 @@ that carries a word, so no NaN is quieted."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 ROWS, LANES = 8, 128
@@ -83,3 +84,28 @@ def run(name: str, *args):
 
         return cuda_probes.probe_cuda(name, *args)
     return PLAIN[name](*args)
+
+
+def numpy_reference(name, w, idx, shift, sel):
+    """The probe `name` in numpy, on [8, 128] int32 words `w`, lane
+    indices `idx`, shifts `shift` and a bool selector `sel` (the formulas
+    of tools/mosaic_probe.py:70-75 for the lane gather and the shift)."""
+    u = w.view(np.uint32)
+    if name == "taa_i32_axis1":
+        return np.take_along_axis(w, idx, axis=1)
+    if name == "taa_i32_axis0":
+        return np.take_along_axis(w, idx % ROWS, axis=0)
+    if name == "dyn_lane_shift":
+        return ((u >> shift) & 0xFF).astype(np.float32)
+    if name == "unpack4_static":
+        acc = np.zeros(w.shape, np.float32)
+        for k in range(4):
+            acc = acc + ((u >> (8 * k)) & 0xFF).astype(np.float32)
+        return acc
+    gathered = np.take_along_axis(w, idx, axis=1)
+    if name == "take_select_i32":
+        return np.where(sel, gathered, w)
+    if name == "take_select_f32":
+        return np.where(sel, gathered.view(np.float32),
+                        w.view(np.float32)).view(np.int32)
+    raise ValueError(f"unknown probe {name!r}")

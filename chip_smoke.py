@@ -156,9 +156,37 @@ ABLATE_OPS_PER_TAP_EVAL = {"full": 41, "noext": 26, "nobounds": 18,
                            "noscan": 41, "f32take": 41}
 ABLATE_SRC_BYTES = {"full": 1, "noext": 1, "nobounds": 1, "noscan": 0,
                     "f32take": 4}
-# modes held to their plain version within 1e-5 (1 + |x|); the others at
-# the ZNCC bar
+# modes held to their plain version within 1e-5 (1 + |x|) at the shipped
+# params, where their costs are cost_max (up to noscan's leak); the others
+# at the ZNCC bar
 ABLATE_CLOSE = ("noext", "noscan")
+# The same two under ops/ablate.EXPOSING, where their costs rest on the
+# sums they keep, both versions reading the 8-bit sources: the share of
+# the informative costs that must lie within 1e-5 of the plain version's,
+# relative. It is under 1 because the placement differs in rounding (the
+# kernel's fmaf homography against the plain version's separate
+# products), so a corner now and then floors to the next pixel: that
+# moves one tap's raw sum in noext and one read offset in noscan (by up
+# to 4e-3 of a small sum, near the view's first rows), or a centre lands
+# in bounds in one version and out in the other; elsewhere both compute
+# the same rounded operations.
+# At least ABLATE_INFORMATIVE_MIN of the costs must be informative.
+ABLATE_EXPOSED_SHARE = 0.99
+ABLATE_INFORMATIVE_MIN = 0.2
+# Every mode is timed at its own occupancy and at 3 blocks of 128 threads
+# per SM, what the registers of full, f32take and nobounds (137-140) allow
+# and noext and noscan (123-128) exceed, so that a mode's saving is the
+# work it removed and not a fourth block. The kernel uses no shared
+# memory; a launch asks for (bytes of dynamic shared memory, carveout
+# preference in percent or -1 for the driver's): 64 KB per block (1 KB
+# more reserved) fits 3 blocks in an SM's 228 KB and not 4 at any
+# carveout, leaving at most 60 KB of L1; 20 KB under a 28% carveout (64
+# KB) fits 3 and not 4 with about 192 KB of L1, if the driver keeps the
+# preference. `full` at its own occupancy against these shows what the
+# smaller L1 costs it.
+ABLATE_EQUAL_BLOCKS = 3
+ABLATE_EQUAL_OCCUPANCY = (("smem 64 KB", 64 * 1024, -1),
+                          ("smem 20 KB, carveout 28%", 20 * 1024, 28))
 ABLATE_SHAPE = (1600, 1184, 8)      # the tool's defaults: width, height, views
 PROBE_TPU_KERNEL = {"taa_i32_axis1": "tools/mosaic_probe.py:36",
                     "taa_i32_axis0": "tools/mosaic_probe.py:53",
@@ -597,26 +625,20 @@ def run_pipeline_phase(scene, dev, work, ref_err):
     return {"launches": launches, "dual_launches": dual["auto"][2]}
 
 
-def probe_numpy(name, w, idx, shift, sel):
-    """A probe's formula in numpy (tools/mosaic_probe.py:70-75 for the
-    lane gather and the shift)."""
-    u = w.view(np.uint32)
-    if name == "taa_i32_axis1":
-        return np.take_along_axis(w, idx, axis=1)
-    if name == "taa_i32_axis0":
-        return np.take_along_axis(w, idx % 8, axis=0)
-    if name == "dyn_lane_shift":
-        return ((u >> shift) & 0xFF).astype(np.float32)
-    if name == "unpack4_static":
-        acc = np.zeros(w.shape, np.float32)
-        for k in range(4):
-            acc = acc + ((u >> (8 * k)) & 0xFF).astype(np.float32)
-        return acc
-    g = np.take_along_axis(w, idx, axis=1)
-    if name == "take_select_i32":
-        return np.where(sel, g, w)
-    return np.where(sel, g.view(np.float32), w.view(np.float32)).view(
-        np.int32)
+def time_ms(fn, reps):
+    """ms per call of `fn` on the card: one warm-up, then `reps` calls
+    between two CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def ablate_bound(inputs, mode, Hg, W, T):
@@ -639,9 +661,9 @@ def sass_report(lib, pattern):
     """{function name: {"all": counts, "loop": counts}} for every kernel
     in `lib` whose name matches `pattern`, from its SASS (cuobjdump, where
     the toolkit has it; None where it does not). counts = (LDG, byte
-    LDG, MUFU.RCP); "loop" counts only the instructions between a
-    backward branch and its target, the tap loop (the hypothesis loops
-    are unrolled)."""
+    LDG, MUFU.RCP, local loads and stores); "loop" counts only the
+    instructions between a backward branch and its target, the tap loop
+    (the hypothesis loops are unrolled)."""
     import re
 
     from acmmp_tpu_torch.kernels import _build
@@ -666,7 +688,8 @@ def sass_report(lib, pattern):
     def counts(ins):
         ldg = [i for i in ins if re.search(r"\bLDG\.", i)]
         return (len(ldg), sum(".U8" in i for i in ldg),
-                sum("MUFU.RCP" in i for i in ins))
+                sum("MUFU.RCP" in i for i in ins),
+                sum(bool(re.search(r"\b(LDL|STL)\b", i)) for i in ins))
 
     out = {}
     for name, instrs in funcs.items():
@@ -711,7 +734,125 @@ def ptxas_registers(text):
     return regs
 
 
-def run_ablation_phase(dev, big, random8, time_ms):
+def log_decomposition(label, t):
+    """Print the shares of zncc.cu K=8's time that the ablation times `t`
+    (ms by mode) attribute to each part of its work."""
+    full = t["full"]
+    parts = (("loads (full - noscan)", full - t["noscan"]),
+             ("bilinear and moments (full - noext)", full - t["noext"]),
+             ("per-tap placement (full - nobounds)", full - t["nobounds"]),
+             ("u8 against f32 reads (f32take - full)", t["f32take"] - full))
+    log(f"  decomposition of zncc.cu K=8 ({label}): full {full:.4f} ms; "
+        + "; ".join(f"{n} {d:.4f} ms = {d / full:.3f}" for n, d in parts))
+
+
+def ablation_on_field(label, params, inp, planes, off, errs, time_plain):
+    """Phase 9c on one K = 8 packed field: every mode against its plain
+    version (the bars above; under ops/ablate.EXPOSING too), `full`
+    bitwise to zncc.cu and f32take bitwise to `full`, each mode timed at
+    its own occupancy and at each of ABLATE_EQUAL_OCCUPANCY, and the
+    decompositions printed. Adds each mode's largest |difference| at the
+    shipped params into `errs`. Returns ({(setting, mode): (ms, bound ms,
+    bound_by) or (ms,)}, {mode: plain ms} when `time_plain`)."""
+    import torch
+
+    from acmmp_tpu_torch.ops import ablate, cuda_ablate, cuda_ncc
+    from acmmp_tpu_torch.ops import ncc as ncc_ops
+
+    fvg = ncc_ops.make_view_geometry(inp.ref_cam, inp.src_cams)
+    nv = int(inp.view_mask.sum())
+    prep = cuda_ablate.prepare(inp.ref_img, inp.src_imgs, fvg, params, off)
+    _, Hg, W, _ = planes.shape
+    T = len(params.tap_offsets) ** 2
+    log(f"phase 9c: ablation modes vs plain, {label}, grid {Hg}x{W}, "
+        f"{nv} views")
+    got = {m: cuda_ablate.ablate_cuda(m, planes, prep, params, nv)
+           for m in ablate.MODES}
+    zncc = cuda_ncc.multiview_zncc_cuda(
+        inp.ref_img, inp.src_imgs, fvg, planes, params, row_pack_off=off,
+        n_views=nv, prep=prep.zncc)
+    full_bitwise = bool(torch.equal(got["full"], zncc))
+    f32_bitwise = bool(torch.equal(got["f32take"], got["full"]))
+    log(f"  full == zncc.cu K=8 bitwise {full_bitwise}; f32take == full "
+        f"bitwise {f32_bitwise}")
+    assert full_bitwise and f32_bitwise, label
+    # the sources the kernel reads, for the plain version under EXPOSING
+    u8_src = ablate.widen_sources(inp.src_imgs)
+    times, plain_ms = {}, {}
+    for m in ablate.MODES:
+        want = ablate.ablate_packed(m, inp.ref_img, inp.src_imgs, fvg,
+                                    planes, params, off)
+        a, b = got[m][..., :nv], want[..., :nv]
+        d = (a - b).abs()
+        errs[m] = max(errs[m], d.max().item())
+        if m in ABLATE_CLOSE:
+            bar = "1e-5 (1 + |x|)"
+            ok = bool((d <= 1e-5 * (1 + b.abs())).all())
+            bad = (d > 1e-5 * (1 + b.abs())).float().mean().item()
+        else:
+            bar = "ZNCC"
+            bad = (d > ZNCC_ATOL + ZNCC_RTOL * b.abs()).float().mean().item()
+            ok = bad < ZNCC_MAX_FRAC
+        at_max = (a == params.cost_max).float().mean().item()
+        del want, a, b, d
+        log(f"  {m}: bad {bad:.2e} ({bar} bar) max|d| {errs[m]:.3e}, at "
+            f"cost_max {at_max:.4f}")
+        assert ok, (label, m, bad)
+        if m in ablate.EXPOSING:
+            xp = ablate.exposing_params(m, params)
+            kx = cuda_ablate.ablate_cuda(m, planes, prep, xp, nv)[..., :nv]
+            px = ablate.ablate_packed(m, inp.ref_img, u8_src, fvg, planes,
+                                      xp, off)[..., :nv]
+            within, info, worst = ablate.exposed_agreement(kx, px)
+            log(f"  {m} under {ablate.EXPOSING[m]}: {within:.6f} of the "
+                f"informative costs within 1e-5 of plain, relative (bar "
+                f"{ABLATE_EXPOSED_SHARE}), largest {worst:.3e}; informative "
+                f"{info:.4f} (bar {ABLATE_INFORMATIVE_MIN})")
+            assert (info >= ABLATE_INFORMATIVE_MIN
+                    and within >= ABLATE_EXPOSED_SHARE), (label, m, within,
+                                                          info)
+            del kx, px
+
+        def kern(m=m):
+            return cuda_ablate.ablate_cuda(m, planes, prep, params, nv)
+
+        ms = time_ms(kern, 20)
+        b_ms, b_by = ablate_bound(inp, m, Hg, W, T)
+        times[("own", m)] = (ms, b_ms, b_by)
+        if time_plain:
+            plain_ms[m] = time_ms(lambda m=m: ablate.ablate_packed(
+                m, inp.ref_img, inp.src_imgs, fvg, planes, params, off), 1)
+        log(f"  {m}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{cuda_ablate.occupancy(m)} blocks per SM"
+            + (f", plain {plain_ms[m]:.3f} ms" if time_plain else ""))
+    zncc_ms = time_ms(lambda: cuda_ncc.multiview_zncc_cuda(
+        inp.ref_img, inp.src_imgs, fvg, planes, params, row_pack_off=off,
+        n_views=nv, prep=prep.zncc), 20)
+    log(f"  zncc.cu K=8 itself {zncc_ms:.4f} ms")
+    log_decomposition(f"{label}, own occupancy",
+                      {m: times[("own", m)][0] for m in ablate.MODES})
+    for name, smem, carve in ABLATE_EQUAL_OCCUPANCY:
+        blocks = {m: cuda_ablate.occupancy(m, smem, carve)
+                  for m in ablate.MODES}
+        for m in ablate.MODES:
+            def kern(m=m):
+                return cuda_ablate.ablate_cuda(m, planes, prep, params, nv,
+                                               smem, carve)
+
+            # the launch's shared memory changes no bit of what it computes
+            assert torch.equal(kern(), got[m]), (label, name, m)
+            times[(name, m)] = (time_ms(kern, 20),)
+        log(f"  at {name}: blocks per SM by the occupancy calculator "
+            f"{blocks}; ms " + ", ".join(
+                f"{m} {times[(name, m)][0]:.4f}" for m in ablate.MODES))
+        if carve < 0:
+            assert set(blocks.values()) == {ABLATE_EQUAL_BLOCKS}, blocks
+        log_decomposition(f"{label}, {name}",
+                          {m: times[(name, m)][0] for m in ablate.MODES})
+    return times, plain_ms
+
+
+def run_ablation_phase(dev, big, random8):
     """Phase 9: the lane probes, then the ZNCC cost decomposition. The
     probes are held bitwise to their plain versions on the card and to
     numpy, on the probe tool's words and nan_take_probe's adversarial
@@ -721,15 +862,14 @@ def run_ablation_phase(dev, big, random8, time_ms):
     the launch counts reset. Then on the tool's converged field and on
     phase 6's random K = 8 field (`random8`, packed at off0 = 0 on the
     scene `big`) each mode is held to its plain version, `full` bitwise
-    to zncc.cu and f32take bitwise to `full`, each mode is timed, and the
-    decomposition printed; last, each mode's registers and SASS counts.
+    to zncc.cu and f32take bitwise to `full`, each mode is timed at its
+    own occupancy and at 3 blocks per SM, and the decompositions printed
+    (ablation_on_field); last, each mode's registers and SASS counts.
     Returns the JSON rows of the modes and the probes."""
     import torch
 
     from acmmp_tpu_torch.kernels import _build
-    from acmmp_tpu_torch.ops import ablate, cuda_ablate, cuda_ncc
-    from acmmp_tpu_torch.ops import cuda_probes, probes
-    from acmmp_tpu_torch.ops import ncc as ncc_ops
+    from acmmp_tpu_torch.ops import ablate, cuda_ablate, cuda_probes, probes
     from acmmp_tpu_torch.tools import mosaic_probe, prop_ablate
 
     rows = []
@@ -748,7 +888,7 @@ def run_ablation_phase(dev, big, random8, time_ms):
             args = [on_dev[a] for a in ("w",) + cuda_probes.ARGS[name]]
             got = cuda_probes.probe_cuda(name, *args)
             plain = probes.PLAIN[name](*args)
-            want = probe_numpy(name, **arrs)
+            want = probes.numpy_reference(name, **arrs)
             same = (torch.equal(got.view(torch.int32), plain.view(torch.int32))
                     and np.array_equal(got.cpu().numpy().view(np.int32),
                                        want.view(np.int32)))
@@ -813,81 +953,16 @@ def run_ablation_phase(dev, big, random8, time_ms):
     errs = {m: 0.0 for m in ablate.MODES}
     mode_times = {}
     for label, inp, planes, off in field_sets:
-        fvg = ncc_ops.make_view_geometry(inp.ref_cam, inp.src_cams)
-        nv = int(inp.view_mask.sum())
-        prep = cuda_ablate.prepare(inp.ref_img, inp.src_imgs, fvg, params,
-                                   off)
-        _, Hg, W, _ = planes.shape
-        log(f"phase 9c: ablation modes vs plain, {label}, grid {Hg}x{W}, "
-            f"{nv} views")
-        got = {m: cuda_ablate.ablate_cuda(m, planes, prep, params, nv)
-               for m in ablate.MODES}
-        zncc = cuda_ncc.multiview_zncc_cuda(
-            inp.ref_img, inp.src_imgs, fvg, planes, params,
-            row_pack_off=off, n_views=nv, prep=prep.zncc)
-        full_bitwise = bool(torch.equal(got["full"], zncc))
-        f32_bitwise = bool(torch.equal(got["f32take"], got["full"]))
-        log(f"  full == zncc.cu K=8 bitwise {full_bitwise}; f32take == full "
-            f"bitwise {f32_bitwise}")
-        assert full_bitwise and f32_bitwise, label
-        times = {}
-        for m in ablate.MODES:
-            want = ablate.ablate_packed(m, inp.ref_img, inp.src_imgs, fvg,
-                                        planes, params, off)
-            a, b = got[m][..., :nv], want[..., :nv]
-            d = (a - b).abs()
-            errs[m] = max(errs[m], d.max().item())
-            if m in ABLATE_CLOSE:
-                bar = "1e-5 (1 + |x|)"
-                ok = bool((d <= 1e-5 * (1 + b.abs())).all())
-                bad = (d > 1e-5 * (1 + b.abs())).float().mean().item()
-            else:
-                bar = "ZNCC"
-                bad = (d > ZNCC_ATOL + ZNCC_RTOL * b.abs()).float().mean(
-                ).item()
-                ok = bad < ZNCC_MAX_FRAC
-            at_max = (a == params.cost_max).float().mean().item()
-            del want, a, b, d
-
-            def kern(m=m):
-                return cuda_ablate.ablate_cuda(m, planes, prep, params, nv)
-
-            ms = time_ms(kern, 20)
-            b_ms, b_by = ablate_bound(inp, m, Hg, W,
-                                      len(params.tap_offsets) ** 2)
-            times[m] = ms
-            row = [ms, b_ms, b_by]
-            if label.startswith("converged"):
-                row.append(time_ms(lambda m=m: ablate.ablate_packed(
-                    m, inp.ref_img, inp.src_imgs, fvg, planes, params, off),
-                    1))
-                mode_times[m] = row
-            log(f"  {m}: bad {bad:.2e} ({bar} bar) max|d| {errs[m]:.3e}, "
-                f"at cost_max {at_max:.4f}; kernel {ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({b_by})"
-                + (f", plain {row[3]:.3f} ms" if len(row) > 3 else ""))
-            assert ok, (label, m, bad)
-        zncc_ms = time_ms(lambda: cuda_ncc.multiview_zncc_cuda(
-            inp.ref_img, inp.src_imgs, fvg, planes, params, row_pack_off=off,
-            n_views=nv, prep=prep.zncc), 20)
-        full = times["full"]
-        log(f"  decomposition of zncc.cu K=8 ({label}): full {full:.4f} ms "
-            f"(zncc.cu itself {zncc_ms:.4f} ms); loads (full - noscan) "
-            f"{full - times['noscan']:.4f} ms = "
-            f"{(full - times['noscan']) / full:.3f}; bilinear and moments "
-            f"(full - noext) {full - times['noext']:.4f} ms = "
-            f"{(full - times['noext']) / full:.3f}; per-tap placement "
-            f"(full - nobounds) {full - times['nobounds']:.4f} ms = "
-            f"{(full - times['nobounds']) / full:.3f}; u8 against f32 reads "
-            f"(f32take - full) {times['f32take'] - full:.4f} ms = "
-            f"{(times['f32take'] - full) / full:.3f}")
-        del prep, got, zncc
+        converged = label.startswith("converged")
+        times, plain_ms = ablation_on_field(label, params, inp, planes, off,
+                                            errs, converged)
+        if converged:
+            mode_times = {m: (times[("own", m)], plain_ms[m])
+                          for m in ablate.MODES}
 
     # ---- 9d: what each mode compiled to ----
     regs = ptxas_registers(_build.BUILD_LOG.get("ablate", ""))
     regs.update(ptxas_registers(_build.BUILD_LOG.get("zncc", "")))
-    sass = sass_report(_build._target("ablate"), "ablate_kernel")
-    zsass = sass_report(_build._target("zncc"), r"zncc_kernelILi8E")
     for fn_name, r in sorted(regs.items()):
         if "ablate_kernel" in fn_name or "zncc_kernelILi8E" in fn_name:
             mode = (ablate_mode_of(fn_name) if "ablate" in fn_name
@@ -898,33 +973,38 @@ def run_ablation_phase(dev, big, random8, time_ms):
             blocks = min(65536 // per_block, 16)
             log(f"phase 9d: {mode}: {r} registers, {blocks} blocks "
                 f"({4 * blocks} warps) per SM by registers")
-    if sass is None:
-        log("phase 9d: cuobjdump not found; no SASS counts")
-    else:
-        for fn_name, c in {**sass, **zsass}.items():
-            mode = (ablate_mode_of(fn_name) if "ablate" in fn_name
-                    else "zncc.cu K=8")
-            loop = ("no backward branch found" if c["loop"] is None else
-                    "LDG {} (byte loads {}), MUFU.RCP {}".format(*c["loop"]))
-            log("phase 9d: {}: SASS LDG {} (byte loads {}), MUFU.RCP {}; "
-                "in the tap loop: {}".format(mode, *c["all"], loop))
-        # each ablation removed what it claims from the tap loop, and nvcc
-        # removed nothing more: the same byte loads in full, noext and
-        # nobounds, none in noscan (nor anywhere in it), f32 words instead
-        # in f32take; the same reciprocals but in nobounds, which has none
-        loop = {ablate_mode_of(n): c["loop"] for n, c in sass.items()}
-        assert all(v is not None for v in loop.values()), loop
-        ldg, u8, rcp = ({m: v[i] for m, v in loop.items()} for i in range(3))
-        assert u8["full"] == u8["noext"] == u8["nobounds"] > 0, loop
-        assert u8["noscan"] == u8["f32take"] == 0, loop
-        assert ldg["f32take"] == ldg["full"], loop
-        assert rcp["full"] == rcp["noext"] == rcp["noscan"] == rcp[
-            "f32take"] > 0 == rcp["nobounds"], loop
-        assert [c["all"][1] for n, c in sass.items()
-                if ablate_mode_of(n) == "noscan"] == [0], sass
+    sass = sass_report(_build._target("ablate"), "ablate_kernel")
+    zsass = sass_report(_build._target("zncc"), r"zncc_kernelILi8E")
+    # the SASS counts are the check that each ablation removed what it
+    # claims and nvcc nothing more: without cuobjdump the phase fails
+    assert sass is not None and zsass is not None, (
+        "cuobjdump not found beside nvcc: no SASS counts")
+    for fn_name, c in {**sass, **zsass}.items():
+        mode = (ablate_mode_of(fn_name) if "ablate" in fn_name
+                else "zncc.cu K=8")
+        loop = ("no backward branch found" if c["loop"] is None else
+                "LDG {} (byte loads {}), MUFU.RCP {}, LDL/STL {}".format(
+                    *c["loop"]))
+        log("phase 9d: {}: SASS LDG {} (byte loads {}), MUFU.RCP {}, "
+            "LDL/STL {}; in the tap loop: {}".format(mode, *c["all"], loop))
+    # each ablation removed what it claims from the tap loop, and nvcc
+    # removed nothing more: the same byte loads in full, noext and
+    # nobounds, none in noscan (nor anywhere in it), f32 words instead in
+    # f32take; the same reciprocals but in nobounds, which has none
+    loop = {ablate_mode_of(n): c["loop"] for n, c in sass.items()}
+    assert sorted(loop) == sorted(ablate.MODES), loop
+    assert all(v is not None for v in loop.values()), loop
+    ldg, u8, rcp, _ = ({m: v[i] for m, v in loop.items()} for i in range(4))
+    assert u8["full"] == u8["noext"] == u8["nobounds"] > 0, loop
+    assert u8["noscan"] == u8["f32take"] == 0, loop
+    assert ldg["f32take"] == ldg["full"], loop
+    assert rcp["full"] == rcp["noext"] == rcp["noscan"] == rcp[
+        "f32take"] > 0 == rcp["nobounds"], loop
+    assert [c["all"][1] for n, c in sass.items()
+            if ablate_mode_of(n) == "noscan"] == [0], sass
 
     for m in ablate.MODES:
-        ms, b_ms, b_by, plain_ms = mode_times[m]
+        (ms, b_ms, b_by), plain_ms = mode_times[m]
         rows.append({
             "name": f"ablate_{m}", "route": "cuda",
             "source": "acmmp_tpu_torch/csrc/ablate.cu",
@@ -1337,17 +1417,6 @@ def main() -> int:
     assert med < 0.15, med
 
     # ---- phase 6: per-launch times beside the plain version and bound ----
-    def time_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
     def bound(inputs, K, Hg, W):
         V, Hs, Ws = inputs.src_imgs.shape
         nv = int(inputs.view_mask.sum())
@@ -1492,7 +1561,7 @@ def main() -> int:
     # phase 6's random K = 8 field at 1600x1184 (same key), packed
     random8 = parity.pack_rows_c(random_planes(big, 8, 48, 0.125, 0.25),
                                  0).contiguous()
-    ablation_rows = run_ablation_phase(dev, big, random8, time_ms)
+    ablation_rows = run_ablation_phase(dev, big, random8)
     del random8
 
     # ---- phase 7: the per-view two-scale chain at full width ----

@@ -10,9 +10,11 @@ jnp oracle of the same K-stack function instead, fed the JAX tool's own
 packed candidates, at the ZNCC bar of tests/test_pallas_ncc.py (fewer
 than 0.1% of costs off by more than 2e-3 + 1e-3 |ref|). `f32take` is
 bitwise `full`; `noscan` is cost_max up to its 1e-30 leak; `noext` and
-`nobounds` equal a direct numpy evaluation of their definitions. The
-kernel itself runs only on a card: the cuda-marked test, and
-chip_smoke.py phase 9, hold each mode against its plain version there."""
+`nobounds` equal a direct numpy evaluation of their definitions. Under
+ops/ablate.EXPOSING, `noext`'s costs rest on its sums and `noscan`'s are
+its leak, so that a comparison there would catch a wrong sum. The kernel
+itself runs only on a card: the cuda-marked test, and chip_smoke.py
+phase 9, hold each mode against its plain version there."""
 
 import importlib.util
 import json
@@ -279,6 +281,48 @@ def test_plain_nobounds_matches_definition(fields):
     assert not np.allclose(got, _plain("full", fields).numpy())
 
 
+def test_exposing_params_make_noext_rest_on_its_sums(fields):
+    tin, tvg = fields["tin"], fields["tvg"]
+    planes = torch.as_tensor(fields["jcand"])
+    xp = ablate.exposing_params("noext", TP)
+    assert xp.min_var == -np.inf and xp.cost_max == np.inf
+    got = ablate.ablate_packed("noext", tin.ref_img, tin.src_imgs, tvg,
+                               planes, xp, fields["joff0"])
+    # at the shipped params every cost is cost_max, whatever s_src is
+    assert bool((_plain("noext", fields) == TP.cost_max).all())
+    within, info, worst = ablate.exposed_agreement(got, got)
+    assert (within, worst) == (1.0, 0.0)
+    assert info > 0.2
+    # a kernel whose s_src were 1e-4 off would fail the chip's bar (0.99
+    # of the informative costs within 1e-5, relative), as would one that
+    # dropped one tap's reads
+    sums, in_bounds, _ = ablate.source_sums(
+        "noext", tin.ref_img, tin.src_imgs, tvg, planes, TP,
+        fields["joff0"])
+    assert torch.equal(tncc.zncc_from_sums(*sums, in_bounds, xp), got)
+    for s_src in (sums[3] * (1 + 1e-4), sums[3] - sums[3] / 36):
+        off = tncc.zncc_from_sums(*sums[:3], s_src, *sums[4:], in_bounds,
+                                  xp)
+        assert ablate.exposed_agreement(off, got)[0] < 0.5
+
+
+def test_exposing_params_make_noscan_its_leak(fields):
+    tin = fields["tin"]
+    planes = torch.as_tensor(fields["jcand"])
+    xp = ablate.exposing_params("noscan", TP)
+    got = ablate.ablate_packed("noscan", tin.ref_img, tin.src_imgs,
+                               fields["tvg"], planes, xp, fields["joff0"])
+    _, _, leak = ablate.source_sums("noscan", tin.ref_img, tin.src_imgs,
+                                    fields["tvg"], planes, TP,
+                                    fields["joff0"])
+    assert torch.equal(got, leak.expand_as(got))
+    within, info, _ = ablate.exposed_agreement(got, got)
+    assert within == 1.0 and info == 1.0
+    # a kernel with one read a row off (128 offsets) in every (pixel,
+    # view) fails the 1e-5 bar at this size, where the sums are below 1.3e7
+    assert ablate.exposed_agreement(got + ablate.LEAK * WIDTH, got)[0] == 0.0
+
+
 def test_tool_runs_on_cpu():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
@@ -341,3 +385,18 @@ def test_kernel_modes_match_plain_on_card():
         want = ablate.ablate_packed(m, inputs.ref_img, inputs.src_imgs, vg,
                                     cand, params, off0)
         torch.testing.assert_close(got[m], want, rtol=1e-5, atol=1e-5)
+        # under EXPOSING their costs rest on the sums they keep (the
+        # chip_smoke.py phase 9c bars)
+        xp = ablate.exposing_params(m, params)
+        within, info, _ = ablate.exposed_agreement(
+            cuda_ablate.ablate_cuda(m, cand, prep, xp),
+            ablate.ablate_packed(m, inputs.ref_img,
+                                 ablate.widen_sources(inputs.src_imgs), vg,
+                                 cand, xp, off0))
+        assert info > 0.2
+        assert within >= 0.99, (m, within)
+    # the occupancy knob changes no bit
+    for m in ablate.MODES:
+        assert torch.equal(cuda_ablate.ablate_cuda(m, cand, prep, params,
+                                                   smem_bytes=64 * 1024),
+                           got[m])

@@ -63,27 +63,6 @@ def k_f32(w_ref, i_ref, s_ref, o_ref):
     o_ref[...] = pltpu.bitcast(jnp.where(s_ref[...], g, wf), jnp.int32)
 
 
-def _numpy(name, w, idx, sh, sel):
-    """The probe's formula in numpy (mosaic_probe.py:70-75 for two)."""
-    u = w.view(np.uint32)
-    if name == "taa_i32_axis1":
-        return np.take_along_axis(w, idx, axis=1)
-    if name == "taa_i32_axis0":
-        return np.take_along_axis(w, idx % 8, axis=0)
-    if name == "dyn_lane_shift":
-        return ((u >> sh) & 0xFF).astype(np.float32)
-    if name == "unpack4_static":
-        acc = np.zeros(w.shape, np.float32)
-        for k in range(4):
-            acc = acc + ((u >> (8 * k)) & 0xFF).astype(np.float32)
-        return acc
-    if name == "take_select_i32":
-        return np.where(sel, np.take_along_axis(w, idx, axis=1), w)
-    wf = w.view(np.float32)
-    return np.where(sel, np.take_along_axis(wf, idx, axis=1),
-                    wf).view(np.int32)
-
-
 # each probe: its Pallas kernel, output dtype and argument names
 CASES = {
     "taa_i32_axis1": (k_taa_i32, jnp.int32, ("w", "idx")),
@@ -125,7 +104,9 @@ def test_plain_probe_matches_pallas_and_numpy(name, kind):
     # bitwise: compare the 32-bit patterns
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     np.testing.assert_array_equal(
-        got.view(np.int32), _numpy(name, **_inputs(kind)).view(np.int32))
+        got.view(np.int32), probes.numpy_reference(
+            name, *(_inputs(kind)[n] for n in ("w", "idx", "sh", "sel"))
+        ).view(np.int32))
 
 
 def test_f32_select_keeps_nan_payloads():
