@@ -1,15 +1,15 @@
-// Ablation modes of the warped bilateral-ZNCC kernel (csrc/zncc.cu), for
-// cost decomposition on Hopper (sm_90a).
+// Ablation modes of the first design of the warped bilateral-ZNCC kernel
+// (csrc/zncc.cu), for cost decomposition on Hopper (sm_90a).
 //
 // Replaces the TPU kernel of tools/prop_ablate.py:97 ablate_call (its
 // pallas_call at :399), a replica of the JAX package's K-stack ZNCC kernel
 // with switches that turn parts of its work off. zncc.cu has no row scan
 // and no bounding boxes, so each mode keeps the TPU tool's name and asks
-// the same question of zncc.cu's own structure: its per-tap placement
+// the same question of that design's own structure: its per-tap placement
 // (homography, IEEE reciprocal, NaN guard, clamps, floors), its four
 // dependent byte reads, and its bilinear and moment arithmetic. The modes
 // (ops/ablate.py holds their plain versions):
-//   full      zncc.cu's K-stack, unchanged;
+//   full      the first design's K-stack, unchanged;
 //   noext     placement and the four reads per tap kept; no bilinear
 //             weights, centring or moments: s_src += w_t * (v00 + v01 +
 //             v10 + v11). The centre sample c_src seeds s_src2, which no
@@ -27,21 +27,26 @@
 // what the mode removes; the LDG and MUFU.RCP counts of each mode's SASS,
 // which chip_smoke.py prints, show it.
 //
-// The code is a copy of zncc.cu:67-227 with the mode as a template
-// parameter: `full` instantiates exactly zncc.cu's arithmetic, with its
-// rounding intrinsics and fmaf, and is built with the same NVCC_FLAGS.
-// zncc.cu stays untouched (it is on the solver's path); chip_smoke.py
-// holds `full` bitwise equal to zncc.cu at K = 8 and f32take bitwise
-// equal to full, which guards the copy against drift. Only K = 8, the
-// propagation stack, is built.
+// The code is a copy of the first design of zncc.cu (one thread per
+// pixel holding all K hypotheses, blockIdx.y over views, four byte
+// gathers per tap through floorf and (int) casts) with the mode as a
+// template parameter. zncc.cu has since been redesigned (one thread per
+// (pixel, hypothesis), one 2x2 word per tap, no conversion instruction in
+// its tap loop) to compute the same rounded values; `full` keeps the
+// first design frozen as the redesign's bitwise and timing yardstick,
+// built with the same NVCC_FLAGS: chip_smoke.py holds `full` bitwise
+// equal to zncc.cu at K = 8 on every field it checks, times the two in
+// turns, and holds f32take bitwise equal to full. The decomposition the
+// modes give describes the first design, not the redesign. Only K = 8,
+// the propagation stack, is built.
 //
-// What bounds it: as zncc.cu, the per-tap work, not the bytes. FP32
+// What bounds it: the per-tap work, not the bytes. FP32
 // operations per (hypothesis, view, tap, pixel), an FMA counted as two
 // (chip_smoke.py's ABLATE_OPS_PER_TAP_EVAL):
 //   full, f32take, noscan  41: the tap's homography 12, the reciprocal 1,
 //             the placement 10 (2 mul, 4 min/max, 2 floor, 2 sub), the
 //             bilinear 11, the centring and moments 7 (zncc.cu's "about
-//             40" is this tally);
+//             40", the same arithmetic in both designs, is this tally);
 //   noext     26: the homography, reciprocal and placement less its two
 //             fractions (21), then 3 adds, 1 mul and 1 add;
 //   nobounds  18: the bilinear and the centring and moments.
@@ -124,8 +129,8 @@ __device__ __forceinline__ float sample_at(const Src* __restrict__ img,
                 (float)__ldg(img + o[2]), (float)__ldg(img + o[3]), fx, fy);
 }
 
-// zncc.cu's sample, on u8 or f32 sources: bilinear read of the view at
-// the homogeneous point (px, py, pz)
+// the first design's sample, on u8 or f32 sources: bilinear read of the
+// view at the homogeneous point (px, py, pz)
 template <typename Src>
 __device__ __forceinline__ float sample(const Src* __restrict__ img, int Ws,
                                         float px, float py, float pz,

@@ -17,18 +17,49 @@
 // or cost_max when a variance is below min_var, when the warped centre
 // falls outside the source, or when v >= n_views (pallas_ncc.py:489-499).
 //
-// What bounds it here: not the bytes (the 8 uint8 sources of a
-// 1600x1184 problem take 15 MB and stay in the 50 MB L2; planes, tap
-// weights and costs stream once), but the per-tap work: four dependent
-// byte gathers and about 40 FP32 operations, including an IEEE
-// reciprocal, per (hypothesis, view, tap, pixel). The design keeps that
-// work plain: one thread per output pixel, blockIdx.y over views so a
-// padded view slot costs one store per hypothesis, the tap loop outside
-// the hypothesis loop so each tap's w / w*ref pair is loaded once for all
-// K, and every source byte read through the read-only path (__ldg). The
-// TPU kernel's u8x4 row-word packing, phase copies, per-tap row-scan
-// bounding boxes and VMEM gates existed only because Mosaic's gather is
-// slow; none of them is carried over.
+// What bounds it here: not the bytes (the sources' 2x2 words of a
+// 1600x1184 / 8-source problem are a 63 MB tensor, read view by view;
+// planes, tap weights and costs stream), but the per-tap work of each
+// (hypothesis, view, tap, pixel): the placement (a 3-row homography step,
+// an IEEE reciprocal, the NaN guard, clamps and floors), one dependent
+// gather, and the bilinear and moment arithmetic, about 40 FP32
+// operations in all.
+// The first design of this kernel (one thread per pixel holding all K
+// hypotheses, four byte gathers per tap; csrc/ablate.cu's `full` mode
+// keeps it) used 137 registers at K = 8, so an SM held 12 warps, too few
+// to hide the chain of dependent loads, and spent 8 conversion-class
+// instructions per (hypothesis, tap) (4 u8->f32, 2 floorf, 2 float->int
+// casts), a class NVIDIA's throughput table for compute capability 9.0
+// rates at an eighth of the FP32 FMA. This design answers each:
+//   * one thread per (output pixel, hypothesis): a warp covers 32
+//     neighbouring pixels of one hypothesis and a block stacks the K
+//     hypotheses of kPix pixels (Shape below). One block per (pixel
+//     chunk, view), the view the fastest index of the grid: a padded view
+//     slot costs one store per (pixel, hypothesis), and the V blocks of a
+//     chunk run together, so its tap weights (288 bytes a pixel at 36
+//     taps) leave device memory once, where a view-major grid streamed
+//     them once per view. A thread keeps one hypothesis and three
+//     accumulators, under 64 registers (__launch_bounds__), so an SM holds
+//     at least 30 warps (chip_smoke.py prints ptxas's registers and the
+//     occupancy calculator's blocks per SM);
+//   * for K > 1 the block's tap weights w and w * ref_c are copied once,
+//     by cp.async, into shared memory and read there by every hypothesis
+//     warp (one 8-byte LDS per tap). K = 1 reads them straight from global
+//     memory: a block reads each value once, the chunk's other views find
+//     it in L2, and staging would only take shared memory from the L1
+//     cache that serves the gathers;
+//   * the wrapper packs each source into 2x2 words (ops/cuda_ncc.py
+//     pack_2x2): word (y, x) holds the bytes at (y, x), (y, x1), (y1, x)
+//     and (y1, x1), the far side clamped to the view's true extent as the
+//     bilinear read clamps it. A tap reads one 32-bit word through the
+//     read-only path instead of four dependent bytes;
+//   * no conversion-class instruction in the tap loop: a byte becomes f32
+//     as 0x4B0000bb (= 2^23 + bb, one PRMT) minus 2^23, and floor(s) with
+//     its integer comes from r = s + 2^23 rounded down (byte_f32 and
+//     floor_u23 below); both are exact, so every rounded f32 value is the
+//     one floorf, (int) and (float) gave.
+// The tap loop is kept rolled (#pragma unroll 1): one word gather and one
+// reciprocal per iteration, which chip_smoke.py reads from the SASS.
 //
 // The moments are accumulated over centred values: reference taps minus
 // the reference pixel's own value (the wrapper does that side), source
@@ -40,10 +71,11 @@
 // bar on ~24% of costs, and flips the min_var degenerate test.
 //
 // A K-stack must be bitwise equal to K launches at K = 1 (the JAX package
-// pins this for its kernels, test_k_shared_matches_per_k). So the
-// per-hypothesis arithmetic is written with explicit rounding intrinsics
-// and fmaf only: nothing is left to the compiler's FMA contraction, and no
-// arithmetic depends on K. Build without --use_fast_math.
+// pins this for its kernels, test_k_shared_matches_per_k), and this design
+// bitwise equal to the first one. So the per-hypothesis arithmetic is
+// written with explicit rounding intrinsics and fmaf only, in the first
+// design's order: nothing is left to the compiler's FMA contraction, and
+// no arithmetic depends on K. Build without --use_fast_math.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,44 +86,105 @@ namespace {
 // kViewStride floats from kHeader: A (9, row-major), B (3), width, height.
 constexpr int kHeader = 16;
 constexpr int kViewStride = 16;
-constexpr int kBlock = 128;
+// 2^23 and its f32 bit pattern: the f32 spacing in [2^23, 2^24) is 1
+constexpr float kTwo23 = 8388608.0f;
+constexpr int kTwo23Bits = 0x4B000000;
+// __byte_perm selector for byte n of x under the three high bytes of
+// kTwo23Bits (0x00, 0x00, 0x4B): kByteSelect + n gives 0x4B0000bb
+constexpr unsigned kByteSelect = 0x7540;
+
+// A block: K hypothesis rows of kPix pixels each (256 threads at K = 1, 2
+// and 8; 192 at K = 3). kMinBlocks asks ptxas for at most 64 registers.
+template <int K>
+struct Shape {
+  static constexpr int kK = K;
+  static constexpr int kPix = K >= 8 ? 32 : 32 * (8 / K);
+  static constexpr int kThreads = K * kPix;
+  static constexpr int kMinBlocks = 65536 / (64 * kThreads);
+  static constexpr bool kStage = K > 1;
+};
+
+// dynamic shared memory of a launch: the taps, then for K > 1 the block's
+// (w, w * ref_c) per tap and pixel
+template <int K>
+size_t smem_bytes(int T) {
+  using S = Shape<K>;
+  return sizeof(float2) * (size_t)T * (1 + (S::kStage ? S::kPix : 0));
+}
 
 struct Hyp {
   float px, py, pz;   // centre warp (homogeneous)
   float ux, uy, uz;   // d p / d di
   float tx, ty, tz;   // d p / d dj
-  float c_src;        // source sample at the centre warp (the shift)
-  bool in_bounds;
 };
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 __device__ __forceinline__ float nan_to_zero(float a) {
   return isnan(a) ? 0.0f : a;
 }
 
-// Bilinear read of the uint8 view at the homogeneous point (px, py, pz),
-// clamped to the true extent [0, sx_max] x [0, sy_max], exact f32 weights.
-__device__ __forceinline__ float sample(const uint8_t* __restrict__ img,
-                                        int Ws, float px, float py, float pz,
-                                        float sx_max, float sy_max,
-                                        int xi_max, int yi_max) {
+// floorf(s) and (int)floorf(s) for 0 <= s < 2^23 without the conversion
+// unit: s + 2^23 rounded down is 2^23 + floor(s) exactly, whose bit
+// pattern is kTwo23Bits + floor(s)
+__device__ __forceinline__ float floor_u23(float s, int& i) {
+  const float r = __fadd_rd(s, kTwo23);
+  i = __float_as_int(r) - kTwo23Bits;
+  return __fsub_rn(r, kTwo23);
+}
+
+// byte n of q as f32, exactly: (2^23 + byte) - 2^23
+template <int n>
+__device__ __forceinline__ float byte_f32(uint32_t q) {
+  return __fsub_rn(
+      __int_as_float(__byte_perm(q, kTwo23Bits, kByteSelect + n)), kTwo23);
+}
+
+// Bilinear read of view v's 2x2 words (from word voff = v * Hs * Ws of
+// src) at the homogeneous point (px, py, pz), clamped to the true extent
+// [0, sx_max] x [0, sy_max], exact f32 weights
+__device__ __forceinline__ float sample(const uint32_t* __restrict__ src,
+                                        unsigned voff, int Ws, float px,
+                                        float py, float pz, float sx_max,
+                                        float sy_max) {
   const float inv_pz = __frcp_rn(pz);
   // NaN guard before the clamp, so no index is formed from a NaN
   const float sx =
       fminf(fmaxf(nan_to_zero(__fmul_rn(px, inv_pz)), 0.0f), sx_max);
   const float sy =
       fminf(fmaxf(nan_to_zero(__fmul_rn(py, inv_pz)), 0.0f), sy_max);
-  const float xf = floorf(sx);
-  const float yf = floorf(sy);
+  int x0, y0;
+  const float xf = floor_u23(sx, x0);
+  const float yf = floor_u23(sy, y0);
   const float fx = __fsub_rn(sx, xf);
   const float fy = __fsub_rn(sy, yf);
-  const int x0 = (int)xf;
-  const int y0 = (int)yf;
-  const int x1 = min(x0 + 1, xi_max);
-  const int y1 = min(y0 + 1, yi_max);
-  const float v00 = (float)__ldg(img + (size_t)y0 * Ws + x0);
-  const float v01 = (float)__ldg(img + (size_t)y1 * Ws + x0);
-  const float v10 = (float)__ldg(img + (size_t)y0 * Ws + x1);
-  const float v11 = (float)__ldg(img + (size_t)y1 * Ws + x1);
+  // (y0, x0), (y0, x1), (y1, x0), (y1, x1) in bytes 0-3; an unsigned
+  // 32-bit index (V * Hs * Ws < 2^31) is one wide multiply-add off src
+  const uint32_t q = __ldg(src + (voff + (unsigned)(y0 * Ws + x0)));
+  const float v00 = byte_f32<0>(q);
+  const float v10 = byte_f32<1>(q);
+  const float v01 = byte_f32<2>(q);
+  const float v11 = byte_f32<3>(q);
   const float a0 = __fsub_rn(1.0f, fx);
   const float top = __fmaf_rn(fx, v10, __fmul_rn(a0, v00));
   const float bot = __fmaf_rn(fx, v11, __fmul_rn(a0, v01));
@@ -99,29 +192,52 @@ __device__ __forceinline__ float sample(const uint8_t* __restrict__ img,
 }
 
 template <int K>
-__global__ void __launch_bounds__(kBlock) zncc_kernel(
-    const float4* __restrict__ planes,   // [K, npix] (nx, ny, nz, w)
-    const uint8_t* __restrict__ src,     // [V, Hs, Ws]
-    const float* __restrict__ w_taps,    // [T, npix]
-    const float* __restrict__ wr_taps,   // [T, npix]
-    const float* __restrict__ refsums,   // [3, npix] sum_w, sum_ref, sum_ref2
-    const float* __restrict__ consts,    // [kHeader + kViewStride * V]
-    const float2* __restrict__ taps,     // [T] (di, dj)
-    float* __restrict__ out,             // [K, npix, V]
-    int V, int n_views, int Hg, int W, int Hs, int Ws, int T,
-    float oy, float ox, int row_pack_off, float cost_max, float min_var) {
+__global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
+    zncc_kernel(const float4* __restrict__ planes,   // [K, npix] (n, w)
+                const uint32_t* __restrict__ src,    // [V, Hs, Ws] 2x2 words
+                const float* __restrict__ w_taps,    // [T, npix]
+                const float* __restrict__ wr_taps,   // [T, npix]
+                const float* __restrict__ refsums,   // [3, npix]
+                const float* __restrict__ consts,    // [kHeader + 16 V]
+                const float2* __restrict__ taps,     // [T] (di, dj)
+                float* __restrict__ out,             // [K, npix, V]
+                int V, int n_views, int Hg, int W, int Hs, int Ws, int T,
+                float oy, float ox, int row_pack_off, float cost_max,
+                float min_var) {
+  using S = Shape<K>;
+  extern __shared__ float2 smem[];   // [T] taps, then [T][kPix] (w, wr)
   const int npix = Hg * W;
-  const int p = blockIdx.x * kBlock + threadIdx.x;
-  const int v = blockIdx.y;
-  if (p >= npix) return;
+  const int lane = threadIdx.x % S::kPix;   // pixel within the block
+  const int k = threadIdx.x / S::kPix;      // hypothesis
+  // views are the fastest grid index: the V blocks of a pixel chunk run
+  // together, so its tap weights come from device memory once, then L2
+  const int chunk = blockIdx.x / V;
+  const int v = blockIdx.x - chunk * V;
+  const int p = chunk * S::kPix + lane;
   if (v >= n_views) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) out[((size_t)k * npix + p) * V + v] = cost_max;
+    if (p < npix) out[((size_t)k * npix + p) * V + v] = cost_max;
     return;
   }
+  // the ragged block's extra threads work on the last pixel and store
+  // nothing; they take part in the staging and the barrier
+  const int pc = min(p, npix - 1);
 
-  const int i = p / W;
-  const int j = p - i * W;
+  float2* s_taps = smem;
+  float2* s_w = smem + T;
+  for (int t = threadIdx.x; t < T; t += S::kThreads)
+    cp_async(s_taps + t, taps + t, 8);
+  if constexpr (S::kStage) {
+    for (int t = k; t < T; t += K) {
+      float2* dst = s_w + t * S::kPix + lane;
+      cp_async(&dst->x, w_taps + (size_t)t * npix + pc, 4);
+      cp_async(&dst->y, wr_taps + (size_t)t * npix + pc, 4);
+    }
+  }
+  cp_async_commit();
+
+  // set-up, while the copies land
+  const int i = pc / W;
+  const int j = pc - i * W;
   const int rr = row_pack_off >= 0 ? 2 * i + ((row_pack_off + j) & 1) : i;
   const float yy = __fadd_rn((float)rr, oy);
   const float xx = __fadd_rn((float)j, ox);
@@ -134,72 +250,72 @@ __global__ void __launch_bounds__(kBlock) zncc_kernel(
   const float sw = __ldg(c + 12), sh = __ldg(c + 13);
   const float sx_max = __fsub_rn(sw, 1.0f);
   const float sy_max = __fsub_rn(sh, 1.0f);
-  const int xi_max = (int)sx_max;
-  const int yi_max = (int)sy_max;
-  // A q for the centre pixel, shared by every hypothesis
+  // A q for the centre pixel
   const float aq0 = __fadd_rn(__fmaf_rn(a01, yy, __fmul_rn(a00, xx)), a02);
   const float aq1 = __fadd_rn(__fmaf_rn(a11, yy, __fmul_rn(a10, xx)), a12);
   const float aq2 = __fadd_rn(__fmaf_rn(a21, yy, __fmul_rn(a20, xx)), a22);
 
-  const uint8_t* img = src + (size_t)v * Hs * Ws;
+  const unsigned voff = (unsigned)(v * Hs * Ws);
   float kr[9];
 #pragma unroll
   for (int q = 0; q < 9; ++q) kr[q] = __ldg(consts + q);
 
-  Hyp h[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float4 pl = __ldg(planes + (size_t)k * npix + p);
-    // m = K_r^{-T} n, 1/w
-    const float m0 = __fmaf_rn(kr[2], pl.z,
-                               __fmaf_rn(kr[1], pl.y, __fmul_rn(kr[0], pl.x)));
-    const float m1 = __fmaf_rn(kr[5], pl.z,
-                               __fmaf_rn(kr[4], pl.y, __fmul_rn(kr[3], pl.x)));
-    const float m2 = __fmaf_rn(kr[8], pl.z,
-                               __fmaf_rn(kr[7], pl.y, __fmul_rn(kr[6], pl.x)));
-    const float iw = __frcp_rn(pl.w);
-    const float m0i = __fmul_rn(m0, iw);
-    const float m1i = __fmul_rn(m1, iw);
-    const float mq =
-        __fmul_rn(__fadd_rn(__fmaf_rn(m1, yy, __fmul_rn(m0, xx)), m2), iw);
-    h[k].px = __fmaf_rn(-b0, mq, aq0);
-    h[k].py = __fmaf_rn(-b1, mq, aq1);
-    h[k].pz = __fmaf_rn(-b2, mq, aq2);
-    h[k].ux = __fmaf_rn(-b0, m0i, a00);
-    h[k].uy = __fmaf_rn(-b1, m0i, a10);
-    h[k].uz = __fmaf_rn(-b2, m0i, a20);
-    h[k].tx = __fmaf_rn(-b0, m1i, a01);
-    h[k].ty = __fmaf_rn(-b1, m1i, a11);
-    h[k].tz = __fmaf_rn(-b2, m1i, a21);
-    const float cx = __fdiv_rn(h[k].px, h[k].pz);
-    const float cy = __fdiv_rn(h[k].py, h[k].pz);
-    h[k].in_bounds = (cx >= 0.0f) && (cx < sw) && (cy >= 0.0f) && (cy < sh);
-    h[k].c_src = sample(img, Ws, h[k].px, h[k].py, h[k].pz, sx_max, sy_max,
-                        xi_max, yi_max);
-  }
+  const float4 pl = __ldg(planes + (size_t)k * npix + pc);
+  // m = K_r^{-T} n, 1/w
+  const float m0 = __fmaf_rn(kr[2], pl.z,
+                             __fmaf_rn(kr[1], pl.y, __fmul_rn(kr[0], pl.x)));
+  const float m1 = __fmaf_rn(kr[5], pl.z,
+                             __fmaf_rn(kr[4], pl.y, __fmul_rn(kr[3], pl.x)));
+  const float m2 = __fmaf_rn(kr[8], pl.z,
+                             __fmaf_rn(kr[7], pl.y, __fmul_rn(kr[6], pl.x)));
+  const float iw = __frcp_rn(pl.w);
+  const float m0i = __fmul_rn(m0, iw);
+  const float m1i = __fmul_rn(m1, iw);
+  const float mq =
+      __fmul_rn(__fadd_rn(__fmaf_rn(m1, yy, __fmul_rn(m0, xx)), m2), iw);
+  Hyp h;
+  h.px = __fmaf_rn(-b0, mq, aq0);
+  h.py = __fmaf_rn(-b1, mq, aq1);
+  h.pz = __fmaf_rn(-b2, mq, aq2);
+  h.ux = __fmaf_rn(-b0, m0i, a00);
+  h.uy = __fmaf_rn(-b1, m0i, a10);
+  h.uz = __fmaf_rn(-b2, m0i, a20);
+  h.tx = __fmaf_rn(-b0, m1i, a01);
+  h.ty = __fmaf_rn(-b1, m1i, a11);
+  h.tz = __fmaf_rn(-b2, m1i, a21);
+  const float cx = __fdiv_rn(h.px, h.pz);
+  const float cy = __fdiv_rn(h.py, h.pz);
+  const bool in_bounds = (cx >= 0.0f) && (cx < sw) && (cy >= 0.0f) &&
+                         (cy < sh);
+  const float c_src =
+      sample(src, voff, Ws, h.px, h.py, h.pz, sx_max, sy_max);
 
-  float s_src[K], s_src2[K], s_rs[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) s_src[k] = s_src2[k] = s_rs[k] = 0.0f;
+  cp_async_wait_all();
+  __syncthreads();
+  if (p >= npix) return;
 
+  float s_src = 0.0f, s_src2 = 0.0f, s_rs = 0.0f;
+#pragma unroll 1
   for (int t = 0; t < T; ++t) {
-    const float2 d = __ldg(taps + t);
-    const float wt = __ldg(w_taps + (size_t)t * npix + p);
-    const float wrt = __ldg(wr_taps + (size_t)t * npix + p);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const Hyp& hk = h[k];
-      const float px = __fmaf_rn(d.y, hk.tx, __fmaf_rn(d.x, hk.ux, hk.px));
-      const float py = __fmaf_rn(d.y, hk.ty, __fmaf_rn(d.x, hk.uy, hk.py));
-      const float pz = __fmaf_rn(d.y, hk.tz, __fmaf_rn(d.x, hk.uz, hk.pz));
-      const float val = __fsub_rn(
-          sample(img, Ws, px, py, pz, sx_max, sy_max, xi_max, yi_max),
-          hk.c_src);
-      const float wv = __fmul_rn(wt, val);
-      s_src[k] = __fadd_rn(s_src[k], wv);
-      s_src2[k] = __fmaf_rn(wv, val, s_src2[k]);
-      s_rs[k] = __fmaf_rn(wrt, val, s_rs[k]);
+    const float2 d = s_taps[t];
+    float wt, wrt;
+    if constexpr (S::kStage) {
+      const float2 ww = s_w[t * S::kPix + lane];
+      wt = ww.x;
+      wrt = ww.y;
+    } else {
+      wt = __ldg(w_taps + (size_t)t * npix + p);
+      wrt = __ldg(wr_taps + (size_t)t * npix + p);
     }
+    const float px = __fmaf_rn(d.y, h.tx, __fmaf_rn(d.x, h.ux, h.px));
+    const float py = __fmaf_rn(d.y, h.ty, __fmaf_rn(d.x, h.uy, h.py));
+    const float pz = __fmaf_rn(d.y, h.tz, __fmaf_rn(d.x, h.uz, h.pz));
+    const float val =
+        __fsub_rn(sample(src, voff, Ws, px, py, pz, sx_max, sy_max), c_src);
+    const float wv = __fmul_rn(wt, val);
+    s_src = __fadd_rn(s_src, wv);
+    s_src2 = __fmaf_rn(wv, val, s_src2);
+    s_rs = __fmaf_rn(wrt, val, s_rs);
   }
 
   const float sum_w = __ldg(refsums + p);
@@ -209,21 +325,17 @@ __global__ void __launch_bounds__(kBlock) zncc_kernel(
   const float mean_ref = __fmul_rn(sum_ref, inv_sum_w);
   const float var_ref = __fsub_rn(__fmul_rn(sum_ref2, inv_sum_w),
                                   __fmul_rn(mean_ref, mean_ref));
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float mean_src = __fmul_rn(s_src[k], inv_sum_w);
-    const float var_src = __fsub_rn(__fmul_rn(s_src2[k], inv_sum_w),
-                                    __fmul_rn(mean_src, mean_src));
-    const float covar = __fsub_rn(__fmul_rn(s_rs[k], inv_sum_w),
-                                  __fmul_rn(mean_ref, mean_src));
-    const float denom =
-        __fsqrt_rn(fmaxf(__fmul_rn(var_ref, var_src), 1e-30f));
-    const float ncc =
-        fminf(fmaxf(__fsub_rn(1.0f, __fdiv_rn(covar, denom)), 0.0f), cost_max);
-    const bool degenerate = (var_ref < min_var) || (var_src < min_var);
-    const float cost = (degenerate || !h[k].in_bounds) ? cost_max : ncc;
-    out[((size_t)k * npix + p) * V + v] = cost;
-  }
+  const float mean_src = __fmul_rn(s_src, inv_sum_w);
+  const float var_src = __fsub_rn(__fmul_rn(s_src2, inv_sum_w),
+                                  __fmul_rn(mean_src, mean_src));
+  const float covar = __fsub_rn(__fmul_rn(s_rs, inv_sum_w),
+                                __fmul_rn(mean_ref, mean_src));
+  const float denom = __fsqrt_rn(fmaxf(__fmul_rn(var_ref, var_src), 1e-30f));
+  const float ncc =
+      fminf(fmaxf(__fsub_rn(1.0f, __fdiv_rn(covar, denom)), 0.0f), cost_max);
+  const bool degenerate = (var_ref < min_var) || (var_src < min_var);
+  out[((size_t)k * npix + p) * V + v] =
+      (degenerate || !in_bounds) ? cost_max : ncc;
 }
 
 template <int K>
@@ -233,10 +345,18 @@ cudaError_t launch(const void* planes, const void* src, const void* w_taps,
                    int n_views, int Hg, int W, int Hs, int Ws, int T,
                    float oy, float ox, int row_pack_off, float cost_max,
                    float min_var, cudaStream_t stream) {
+  using S = Shape<K>;
+  const size_t smem = smem_bytes<K>(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        zncc_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   const int npix = Hg * W;
-  const dim3 grid((npix + kBlock - 1) / kBlock, V);
-  zncc_kernel<K><<<grid, kBlock, 0, stream>>>(
-      static_cast<const float4*>(planes), static_cast<const uint8_t*>(src),
+  const dim3 grid(((npix + S::kPix - 1) / S::kPix) * V);
+  zncc_kernel<K><<<grid, S::kThreads, smem, stream>>>(
+      static_cast<const float4*>(planes), static_cast<const uint32_t*>(src),
       static_cast<const float*>(w_taps), static_cast<const float*>(wr_taps),
       static_cast<const float*>(refsums), static_cast<const float*>(consts),
       static_cast<const float2*>(taps), static_cast<float*>(out), V, n_views,
@@ -244,35 +364,62 @@ cudaError_t launch(const void* planes, const void* src, const void* w_taps,
   return cudaGetLastError();
 }
 
+template <int K>
+cudaError_t occupancy(int T, int* blocks, int* threads) {
+  *threads = Shape<K>::kThreads;
+  const size_t smem = smem_bytes<K>(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        zncc_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, zncc_kernel<K>, Shape<K>::kThreads, smem);
+}
+
+// f(Shape<K>{}) for a supported K
+template <typename F>
+int dispatch(int K, F f) {
+  switch (K) {
+    case 1:
+      return static_cast<int>(f(Shape<1>{}));
+    case 2:
+      return static_cast<int>(f(Shape<2>{}));
+    case 3:
+      return static_cast<int>(f(Shape<3>{}));
+    case 8:
+      return static_cast<int>(f(Shape<8>{}));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for an unsupported K.
+// Plain C entry points (loaded with ctypes). `src` points at the sources'
+// 2x2 words [V, Hs, Ws] (int32). The launch returns cudaGetLastError()
+// after it, or cudaErrorInvalidValue for an unsupported K.
 extern "C" int acmmp_zncc_launch(
     int K, const void* planes, const void* src, const void* w_taps,
     const void* wr_taps, const void* refsums, const void* consts,
     const void* taps, void* out, int V, int n_views, int Hg, int W, int Hs,
     int Ws, int T, float oy, float ox, int row_pack_off, float cost_max,
     float min_var, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 1:
-      return launch<1>(planes, src, w_taps, wr_taps, refsums, consts, taps,
-                       out, V, n_views, Hg, W, Hs, Ws, T, oy, ox,
-                       row_pack_off, cost_max, min_var, s);
-    case 2:
-      return launch<2>(planes, src, w_taps, wr_taps, refsums, consts, taps,
-                       out, V, n_views, Hg, W, Hs, Ws, T, oy, ox,
-                       row_pack_off, cost_max, min_var, s);
-    case 3:
-      return launch<3>(planes, src, w_taps, wr_taps, refsums, consts, taps,
-                       out, V, n_views, Hg, W, Hs, Ws, T, oy, ox,
-                       row_pack_off, cost_max, min_var, s);
-    case 8:
-      return launch<8>(planes, src, w_taps, wr_taps, refsums, consts, taps,
-                       out, V, n_views, Hg, W, Hs, Ws, T, oy, ox,
-                       row_pack_off, cost_max, min_var, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(K, [&](auto shape) {
+    return launch<decltype(shape)::kK>(
+        planes, src, w_taps, wr_taps, refsums, consts, taps, out, V, n_views,
+        Hg, W, Hs, Ws, T, oy, ox, row_pack_off, cost_max, min_var,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The blocks of zncc_kernel<K> an SM holds with T taps, by the runtime's
+// occupancy calculator, into *blocks, and the threads of a block into
+// *threads.
+extern "C" int acmmp_zncc_occupancy(int K, int T, int* blocks,
+                                    int* threads) {
+  return dispatch(K, [&](auto shape) {
+    return occupancy<decltype(shape)::kK>(T, blocks, threads);
+  });
 }

@@ -157,9 +157,12 @@ class _Context:
         if off0 not in self._preps:
             from acmmp_tpu_torch.ops import cuda_ncc
 
+            # the sources' words, constants and taps are built once per
+            # solve and shared by its grid layouts
             self._preps[off0] = cuda_ncc.prepare(
                 self.inputs.ref_img, self.inputs.src_imgs, self.vg,
-                self.params, off0)
+                self.params, off0,
+                shared=next(iter(self._preps.values()), None))
         return self._preps[off0]
 
     def zncc(self, planes, off0: Optional[int] = None):

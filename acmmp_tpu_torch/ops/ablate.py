@@ -3,15 +3,18 @@ csrc/ablate.cu computes for each mode, and what it is held against.
 
 The JAX package's ``tools/prop_ablate.py`` times a replica of its TPU
 K-stack kernel with parts of the work switched off, to find where the
-kernel's time goes. ``csrc/zncc.cu`` is shaped differently: it has no row
-scan and no bounding boxes, only a per-tap placement (homography,
-reciprocal, NaN guard, clamps, floors; ``sample`` at zncc.cu:73-99), four
-dependent byte reads, and the bilinear and moment arithmetic of the tap
-loop (zncc.cu:185-203). So each mode keeps the TPU tool's name, so that a
-reader can find its counterpart, and takes the meaning that asks the same
-question of zncc.cu's structure:
+kernel's time goes. The first design of ``csrc/zncc.cu``, which
+csrc/ablate.cu keeps frozen, is shaped differently: it has no row scan
+and no bounding boxes, only a per-tap placement (homography, reciprocal,
+NaN guard, clamps, floors; ``place`` and ``sample`` in csrc/ablate.cu),
+four dependent byte reads, and the bilinear and moment arithmetic of the
+tap loop. So each mode keeps the TPU tool's name, so that a reader can
+find its counterpart, and takes the meaning that asks the same question
+of that design's structure (the redesigned zncc.cu computes the same
+costs, bitwise, another way):
 
-  full      zncc.cu's K-stack, unchanged (TPU: the shipped kernel).
+  full      the first design's K-stack, unchanged (TPU: the shipped
+            kernel).
   noext     placement and the four reads per tap kept; no bilinear
             weights, centring or moments: s_src += w_t * (v00 + v01 + v10
             + v11). The centre sample c_src is still taken and seeds
@@ -138,7 +141,7 @@ def source_sums(mode: str, ref_img, src_imgs, vg: ncc_ops.ViewGeometry,
         c_src = ncc_ops.sample_views(src_imgs, cx, cy, sw, sh)
 
     def read_offsets(sx, sy):
-        # the four offsets a read would use (zncc.cu's y * Ws + x)
+        # the four offsets a read would use (ablate.cu's y * Ws + x)
         x0, y0, x1, y1, _, _ = ncc_ops.place_views(sx, sy, sw, sh)
         return (y0 * Ws + x0) + (y1 * Ws + x0) + (y0 * Ws + x1) + (
             y1 * Ws + x1)

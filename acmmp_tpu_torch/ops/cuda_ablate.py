@@ -1,7 +1,8 @@
 """Wrapper of the ZNCC ablation kernel (csrc/ablate.cu).
 
 The kernel stands in for the TPU kernel of the JAX package's
-``tools/prop_ablate.py::ablate_call``: zncc.cu's K = 8 stack with parts
+``tools/prop_ablate.py::ablate_call``: the first design of zncc.cu's
+K = 8 stack (kept frozen as the redesign's yardstick) with parts
 of its work switched off by mode (ops/ablate.py says what each mode keeps
 and holds their plain versions). The wrapper reuses ``cuda_ncc.prepare``
 for the u8 sources, the homography constants, the taps and the
@@ -92,7 +93,7 @@ def ablate_cuda(mode: str, planes: torch.Tensor, prep: AblatePrep,
     view slots get cost_max. `smem_bytes` of dynamic shared memory (the
     kernel uses none) and a `carveout` preference in percent limit the
     blocks per SM, to time modes of different register counts at one
-    occupancy; the defaults launch as zncc.cu does."""
+    occupancy; the defaults launch as the first design did."""
     if mode not in MODES:
         raise ValueError(f"ablate kernel: mode must be one of {MODES}, "
                          f"got {mode!r}")

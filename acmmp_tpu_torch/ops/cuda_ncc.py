@@ -9,9 +9,12 @@ given, allocates the output, launches on the current stream and raises if
 the launch failed. There is no fallback: a tensor the kernel does not
 take raises.
 
-``prepare`` does the per-solve part once (u8 sources, homography
-constants, tap offsets, reference-side weights for one grid layout), so a
-solve's 13 launches repeat none of it."""
+``prepare`` does the per-solve part once (the sources' 2x2 words,
+homography constants and tap offsets, shared by every grid layout of the
+solve; the reference-side weights of one layout), so a solve's 13
+launches repeat none of it. The 2x2 words are plain tensor code
+(``pack_2x2``): the kernel reads one 32-bit word per tap where it would
+read four bytes."""
 
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ class ZnccPrep(NamedTuple):
     """Per-solve inputs of the kernel for one grid layout."""
 
     src_u8: torch.Tensor     # [V, Hs, Ws] uint8
+    src_q: torch.Tensor      # [V, Hs, Ws] int32 2x2 words (pack_2x2)
     consts: torch.Tensor     # [16 + 16 V] f32: K^{-T}, then A, B, w, h per view
     taps: torch.Tensor       # [T, 2] f32 (di, dj)
     w_taps: torch.Tensor     # [T, Hg, W] bilateral weights
@@ -76,29 +80,66 @@ def ref_side(ref_img: torch.Tensor, params: PatchMatchParams):
             torch.stack([sum_w, sum_ref, sum_ref_ref]))
 
 
+def pack_2x2(src_u8: torch.Tensor, widths: torch.Tensor,
+             heights: torch.Tensor) -> torch.Tensor:
+    """The 2x2 words the kernel gathers: [V, Hs, Ws] uint8 -> int32 with
+    q[v, y, x] = b(y, x) | b(y, x1) << 8 | b(y1, x) << 16 | b(y1, x1) << 24,
+    x1 = min(x + 1, xi_max), y1 = min(y + 1, yi_max), where xi_max =
+    (int)(width_v - 1) and yi_max = (int)(height_v - 1) in f32 as the
+    kernel forms them: the clamp of its bilinear read to the view's true
+    extent, which may be smaller than the padded Hs x Ws. A word past the
+    true extent is never read; its far side is kept inside the array."""
+    V, Hs, Ws = src_u8.shape
+    dev = src_u8.device
+
+    def far(n, extent):
+        # [V, n]: min(i + 1, (int)(extent - 1)), kept in [0, n)
+        hi = (extent.to(torch.float32) - 1.0).to(torch.int64)
+        i = torch.arange(n, device=dev, dtype=torch.int64)
+        return torch.clamp(torch.minimum(i + 1, hi[:, None]), 0, n - 1)
+
+    b = src_u8.to(torch.int64)
+    x1 = far(Ws, widths)[:, None, :].expand(V, Hs, Ws)
+    y1 = far(Hs, heights)[:, :, None].expand(V, Hs, Ws)
+    down = torch.gather(b, 1, y1)
+    q = (b | torch.gather(b, 2, x1) << 8 | down << 16
+         | torch.gather(down, 2, x1) << 24)
+    # the unsigned word's bits as int32
+    return (q - ((q >> 31) << 32)).to(torch.int32)
+
+
 def prepare(ref_img: torch.Tensor, src_imgs: torch.Tensor,
             vg: ncc_ops.ViewGeometry, params: PatchMatchParams,
-            row_pack_off: Optional[int] = None) -> ZnccPrep:
+            row_pack_off: Optional[int] = None,
+            shared: Optional[ZnccPrep] = None) -> ZnccPrep:
     """The kernel's per-solve inputs for one layout (full grid when
-    `row_pack_off` is None, else the parity-packed half grid)."""
+    `row_pack_off` is None, else the parity-packed half grid). `shared`,
+    a prep of the same solve for another layout, gives the sources'
+    words, the constants and the taps, which do not depend on it."""
     if not params.ncc_src_u8:
         raise NotImplementedError(
             "the ZNCC kernel reads 8-bit sources (ncc_src_u8=True); use "
             "ncc_backend='plain' for float sources")
     dev = ref_img.device
-    src_u8 = torch.round(torch.clamp(src_imgs, 0.0, 255.0)).to(torch.uint8)
-    V = src_imgs.shape[0]
-    consts = torch.zeros(_HEADER + _VIEW_STRIDE * V, dtype=torch.float32,
-                         device=dev)
-    consts[:9] = vg.KrT.reshape(9)
-    per_view = consts[_HEADER:].view(V, _VIEW_STRIDE)
-    per_view[:, :9] = vg.A.reshape(V, 9)
-    per_view[:, 9:12] = vg.B
-    per_view[:, 12] = vg.src_width
-    per_view[:, 13] = vg.src_height
-    taps = torch.tensor([(float(di), float(dj)) for di, dj, _w
-                         in ncc_ops.tap_weights_spatial(params)],
-                        dtype=torch.float32, device=dev)
+    if shared is not None:
+        src_u8, src_q = shared.src_u8, shared.src_q
+        consts, taps = shared.consts, shared.taps
+    else:
+        src_u8 = torch.round(torch.clamp(src_imgs, 0.0, 255.0)).to(
+            torch.uint8).contiguous()
+        src_q = pack_2x2(src_u8, vg.src_width, vg.src_height)
+        V = src_imgs.shape[0]
+        consts = torch.zeros(_HEADER + _VIEW_STRIDE * V, dtype=torch.float32,
+                             device=dev)
+        consts[:9] = vg.KrT.reshape(9)
+        per_view = consts[_HEADER:].view(V, _VIEW_STRIDE)
+        per_view[:, :9] = vg.A.reshape(V, 9)
+        per_view[:, 9:12] = vg.B
+        per_view[:, 12] = vg.src_width
+        per_view[:, 13] = vg.src_height
+        taps = torch.tensor([(float(di), float(dj)) for di, dj, _w
+                             in ncc_ops.tap_weights_spatial(params)],
+                            dtype=torch.float32, device=dev)
     w_taps, wr_taps, refsums = ref_side(ref_img, params)
     off = -1
     if row_pack_off is not None:
@@ -106,7 +147,7 @@ def prepare(ref_img: torch.Tensor, src_imgs: torch.Tensor,
         w_taps = parity.pack_rows(w_taps, off)
         wr_taps = parity.pack_rows(wr_taps, off)
         refsums = parity.pack_rows(refsums, off)
-    return ZnccPrep(src_u8.contiguous(), consts, taps, w_taps.contiguous(),
+    return ZnccPrep(src_u8, src_q, consts, taps, w_taps.contiguous(),
                     wr_taps.contiguous(), refsums.contiguous(), off)
 
 
@@ -119,7 +160,21 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [ci] + [vp] * 8 + [ci] * 7 + [cf, cf, ci, cf, cf, vp]
         fn.restype = ci
-    return fn
+        occ = lib.acmmp_zncc_occupancy
+        occ.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        occ.restype = ci
+    return lib
+
+
+def occupancy(K: int, T: int):
+    """(blocks of the K kernel an SM holds with T taps, by the CUDA
+    runtime's occupancy calculator; threads per block)."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().acmmp_zncc_occupancy(
+        int(K), int(T), ctypes.byref(blocks), ctypes.byref(threads))
+    if rc != 0:
+        raise RuntimeError(f"zncc kernel occupancy failed: cudaError {rc}")
+    return blocks.value, threads.value
 
 
 def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
@@ -145,7 +200,7 @@ def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
                          f"{prep.row_pack_off}, call has {want_off}")
     T = prep.taps.shape[0]
     check_arg("zncc", "planes", planes, torch.float32, (K, Hg, W, 4), dev)
-    check_arg("zncc", "src_u8", prep.src_u8, torch.uint8, (V, Hs, Ws), dev)
+    check_arg("zncc", "src_q", prep.src_q, torch.int32, (V, Hs, Ws), dev)
     check_arg("zncc", "consts", prep.consts, torch.float32,
               (_HEADER + _VIEW_STRIDE * V,), dev)
     check_arg("zncc", "taps", prep.taps, torch.float32, (T, 2), dev)
@@ -156,6 +211,9 @@ def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
         raise ValueError("zncc kernel: planes must be 16-byte aligned")
     if K * Hg * W * V >= 2 ** 31 or V * Hs * Ws >= 2 ** 31:
         raise ValueError("zncc kernel: problem too large for 32-bit indexing")
+    if max(Hs, Ws) >= 2 ** 23:
+        # the kernel's floor (s + 2^23 rounded down) is exact below 2^23
+        raise ValueError("zncc kernel: sources wider or taller than 2^23")
     nv = V if n_views is None else int(n_views)
     oy, ox = (0.0, 0.0) if origin is None else (float(origin[0]),
                                                 float(origin[1]))
@@ -163,12 +221,13 @@ def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
     out = torch.empty((K, Hg, W, V), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib()(K, planes.data_ptr(), prep.src_u8.data_ptr(),
-                    prep.w_taps.data_ptr(), prep.wr_taps.data_ptr(),
-                    prep.refsums.data_ptr(), prep.consts.data_ptr(),
-                    prep.taps.data_ptr(), out.data_ptr(), V, nv, Hg, W, Hs,
-                    Ws, T, oy, ox, prep.row_pack_off, float(params.cost_max),
-                    float(params.min_var), stream)
+        rc = _lib().acmmp_zncc_launch(
+            K, planes.data_ptr(), prep.src_q.data_ptr(),
+            prep.w_taps.data_ptr(), prep.wr_taps.data_ptr(),
+            prep.refsums.data_ptr(), prep.consts.data_ptr(),
+            prep.taps.data_ptr(), out.data_ptr(), V, nv, Hg, W, Hs, Ws, T, oy,
+            ox, prep.row_pack_off, float(params.cost_max),
+            float(params.min_var), stream)
     if rc != 0:
         raise RuntimeError(f"zncc kernel launch failed: cudaError {rc}")
     launches[K] += 1

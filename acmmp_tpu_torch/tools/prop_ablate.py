@@ -1,5 +1,6 @@
-"""Cost decomposition of the ZNCC kernel (csrc/zncc.cu) on the GPU — the
-port of the JAX package's ``tools/prop_ablate.py``.
+"""Cost decomposition of the ZNCC kernel's first design (csrc/zncc.cu as
+first written, frozen in csrc/ablate.cu) on the GPU — the port of the
+JAX package's ``tools/prop_ablate.py``.
 
 It times the K = 8 propagation stack, the solver's most expensive call,
 in five modes of csrc/ablate.cu that switch parts of the per-tap work off
@@ -8,7 +9,7 @@ relief scene's ground-truth surface planes and 8 neighbour-shifted copies
 of them as the propagation candidates, offsets (0, +-1), (0, +-5),
 (+-1, 0), (+-5, 0), parity-packed as a half-sweep scores them:
 
-  full      zncc.cu's arithmetic, unchanged
+  full      the first design's arithmetic, unchanged
   noext     no bilinear weights, centring or moments per tap
   nobounds  the per-tap placement only at tap 0
   noscan    no source reads

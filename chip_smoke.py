@@ -9,9 +9,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   3. hold the ZNCC kernel against its plain PyTorch version on the card,
      on the 320x240 / 4-source bench scene: K=1 on the full grid, K=8/3/2
      on the parity-packed grid, coherent and random planes under both
-     random laws, a padded view slot, and K-stacks bitwise equal to K
-     separate K=1 launches; then again at the main paths' own shapes
-     (1600x1184 and 800x592, 8 sources);
+     random laws, a padded view slot, K-stacks bitwise equal to K
+     separate K=1 launches, and every packed K=8 stack bitwise equal to
+     the kernel's first design (csrc/ablate.cu `full`); then again at the
+     main paths' own shapes (1600x1184 and 800x592, 8 sources, K=8
+     coherent and random under both laws);
   3c. hold the geometric-consistency kernel against its plain version on
      a non-round rig at 320x240 / 4 sources (+1 padded slot), 800x592 and
      1600x1184 / 8 sources: K=1 on the full grid, K=8 and K=5 packed at
@@ -23,7 +25,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      shipping PatchMatchParams(), warm-up then timed; 13 kernel launches
      per solve; median interior depth error below 0.15;
   6. per-launch kernel times at the main paths' shapes beside the plain
-     version and the bound;
+     version and the bound, each ZNCC K's ptxas registers and blocks per
+     SM (occupancy calculator), and zncc.cu K=8 against its first design
+     timed in turns (first, new, new, first) on the random field at
+     1600x1184, which it must beat;
   7. ACMMP's per-view two-scale chain at full width on arrays: 3 of the
      9 views (0, 4, 8), each the reference with the other 2 as sources
      (phase 8 runs the same schedule on all 9 through the disk), at
@@ -63,10 +68,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      K=8 field, each mode of csrc/ablate.cu against its plain version
      (full bitwise equal to zncc.cu K=8, f32take bitwise equal to full,
      nobounds at the ZNCC bar, noext and noscan within 1e-5 (1 + |x|)),
-     timed, and the decomposition printed (loads = full - noscan,
-     bilinear and moments = full - noext, per-tap placement = full -
-     nobounds, u8 against f32 reads = f32take - full); last, each mode's
-     ptxas registers and its SASS LDG and MUFU.RCP counts (cuobjdump);
+     timed, zncc.cu K=8 timed in turns against `full` (it must beat it
+     here too), and the decomposition of the first design printed (loads
+     = full - noscan, bilinear and moments = full - noext, per-tap
+     placement = full - nobounds, u8 against f32 reads = f32take - full);
+     last, each mode's and each zncc.cu K's ptxas registers and SASS
+     counts (cuobjdump): loads, reciprocals, conversions (I2F, F2I, FRND),
+     PRMT, LDS and local memory, with zncc.cu's tap loop held to one
+     32-bit source word, one MUFU.RCP and no conversion or local memory
+     per (hypothesis, tap) at every K;
 then the kernel table as one JSON line, the card line and the result
 line.
 
@@ -657,13 +667,53 @@ def ablate_bound(inputs, mode, Hg, W, T):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+SASS_CLASSES = ("ins", "ldg", "ldg_u8", "ldg32", "rcp", "i2f", "f2i",
+                "frnd", "prmt", "lds", "local")
+
+
+def sass_counts(instrs):
+    """Counts of the SASS instruction classes phase 9d reads: all
+    instructions, global loads (LDG), byte loads, 32-bit loads, MUFU.RCP,
+    the conversion classes I2F (and I2FP), F2I (and F2IP) and FRND, PRMT,
+    shared loads (LDS) and local-memory loads and stores; and under "conv"
+    the distinct conversion opcodes. An instruction under the never-true
+    predicate @!PT is never issued and not counted."""
+    c = dict.fromkeys(SASS_CLASSES, 0)
+    conv = set()
+    for ins in instrs:
+        words = ins.split()
+        if not words or words[0] == "@!PT":
+            continue
+        op = words[1] if words[0].startswith("@") else words[0]
+        name, *mods = op.split(".")
+        c["ins"] += 1
+        if name.startswith(("I2F", "F2I", "FRND")):
+            conv.add(op)
+        if name == "LDG":
+            c["ldg"] += 1
+            c["ldg_u8"] += "U8" in mods
+            c["ldg32"] += not set(mods) & {"U8", "S8", "U16", "S16", "64",
+                                           "128"}
+        c["rcp"] += op.startswith("MUFU.RCP")
+        c["i2f"] += name.startswith("I2F")
+        c["f2i"] += name.startswith("F2I")
+        c["frnd"] += name == "FRND"
+        c["prmt"] += name == "PRMT"
+        c["lds"] += name == "LDS"
+        c["local"] += name in ("LDL", "STL")
+    c["conv"] = sorted(conv)
+    return c
+
+
 def sass_report(lib, pattern):
-    """{function name: {"all": counts, "loop": counts}} for every kernel
-    in `lib` whose name matches `pattern`, from its SASS (cuobjdump, where
-    the toolkit has it; None where it does not). counts = (LDG, byte
-    LDG, MUFU.RCP, local loads and stores); "loop" counts only the
-    instructions between a backward branch and its target, the tap loop
-    (the hypothesis loops are unrolled)."""
+    """{function name: {"all": counts, "loop": counts, "tap": counts,
+    "tap_loops": n}} for every kernel in `lib` whose name matches
+    `pattern`, from its SASS (cuobjdump, where the toolkit has it; None
+    where it does not); counts as sass_counts. "loop" counts only the
+    instructions between a backward branch and its target, every loop of
+    the kernel (the hypothesis loops are unrolled); "tap" only the loops
+    that hold a MUFU.RCP (the tap loop: the staging loops hold none), of
+    which there are "tap_loops"; None where there is no such loop."""
     import re
 
     from acmmp_tpu_torch.kernels import _build
@@ -685,12 +735,6 @@ def sass_report(lib, pattern):
         if name and m:
             funcs[name].append((int(m.group(1), 16), m.group(2)))
 
-    def counts(ins):
-        ldg = [i for i in ins if re.search(r"\bLDG\.", i)]
-        return (len(ldg), sum(".U8" in i for i in ldg),
-                sum("MUFU.RCP" in i for i in ins),
-                sum(bool(re.search(r"\b(LDL|STL)\b", i)) for i in ins))
-
     out = {}
     for name, instrs in funcs.items():
         loops = []
@@ -700,11 +744,43 @@ def sass_report(lib, pattern):
             m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)\s*$", ins)
             if m and int(m.group(1), 16) < addr:
                 loops.append((int(m.group(1), 16), addr))
-        in_loop = [ins for addr, ins in instrs
-                   if any(lo <= addr <= hi for lo, hi in loops)]
-        out[name] = {"all": counts([i for _, i in instrs]),
-                     "loop": counts(in_loop) if loops else None}
+
+        def within(spans):
+            return [ins for addr, ins in instrs
+                    if any(lo <= addr <= hi for lo, hi in spans)]
+
+        taps = [span for span in loops
+                if any("MUFU.RCP" in ins for ins in within([span]))]
+        out[name] = {"all": sass_counts(i for _, i in instrs),
+                     "loop": sass_counts(within(loops)) if loops else None,
+                     "tap": sass_counts(within(taps)) if taps else None,
+                     "tap_loops": len(taps)}
     return out
+
+
+def sass_line(c):
+    """One line of sass_counts."""
+    return ("{ins} instructions: LDG {ldg} (byte {ldg_u8}, 32-bit {ldg32}), "
+            "MUFU.RCP {rcp}, I2F {i2f}, F2I {f2i}, FRND {frnd} ({conv}), "
+            "PRMT {prmt}, LDS {lds}, LDL/STL {local}".format(**c))
+
+
+def ab_time(label, first, new, reps=20):
+    """zncc.cu (`new`) against its first design (`first`, csrc/ablate.cu
+    `full`) on one field, timed in turns (first, new, new, first), each
+    turn `reps` launches between CUDA events after a warm-up. zncc.cu
+    must be the faster. Returns (first ms, new ms), the means of their
+    two turns."""
+    t = {"first": [], "new": []}
+    for name in ("first", "new", "new", "first"):
+        t[name].append(time_ms(first if name == "first" else new, reps))
+    f, n = statistics.fmean(t["first"]), statistics.fmean(t["new"])
+    log(f"  zncc.cu K=8 against its first design, {label}: first "
+        f"{[round(x, 4) for x in t['first']]} ms, zncc.cu "
+        f"{[round(x, 4) for x in t['new']]} ms; means {f:.4f} and {n:.4f} "
+        f"ms, ratio {n / f:.4f}")
+    assert max(t["new"]) < min(t["first"]), (label, t)
+    return f, n
 
 
 def ablate_mode_of(fn_name):
@@ -735,23 +811,27 @@ def ptxas_registers(text):
 
 
 def log_decomposition(label, t):
-    """Print the shares of zncc.cu K=8's time that the ablation times `t`
-    (ms by mode) attribute to each part of its work."""
+    """Print the shares of the first design of zncc.cu K=8 (csrc/ablate.cu
+    `full`) that the ablation times `t` (ms by mode) attribute to each
+    part of its work."""
     full = t["full"]
     parts = (("loads (full - noscan)", full - t["noscan"]),
              ("bilinear and moments (full - noext)", full - t["noext"]),
              ("per-tap placement (full - nobounds)", full - t["nobounds"]),
              ("u8 against f32 reads (f32take - full)", t["f32take"] - full))
-    log(f"  decomposition of zncc.cu K=8 ({label}): full {full:.4f} ms; "
+    log(f"  decomposition of the first design of zncc.cu K=8 ({label}): "
+        f"full {full:.4f} ms; "
         + "; ".join(f"{n} {d:.4f} ms = {d / full:.3f}" for n, d in parts))
 
 
 def ablation_on_field(label, params, inp, planes, off, errs, time_plain):
     """Phase 9c on one K = 8 packed field: every mode against its plain
-    version (the bars above; under ops/ablate.EXPOSING too), `full`
-    bitwise to zncc.cu and f32take bitwise to `full`, each mode timed at
-    its own occupancy and at each of ABLATE_EQUAL_OCCUPANCY, and the
-    decompositions printed. Adds each mode's largest |difference| at the
+    version (the bars above; under ops/ablate.EXPOSING too), `full` (the
+    first design of zncc.cu, frozen as the redesign's bitwise and timing
+    yardstick) bitwise to zncc.cu and f32take bitwise to `full`, each mode
+    timed at its own occupancy and at each of ABLATE_EQUAL_OCCUPANCY,
+    zncc.cu timed in turns against `full`, and the decompositions
+    printed. Adds each mode's largest |difference| at the
     shipped params into `errs`. Returns ({(setting, mode): (ms, bound ms,
     bound_by) or (ms,)}, {mode: plain ms} when `time_plain`)."""
     import torch
@@ -773,7 +853,8 @@ def ablation_on_field(label, params, inp, planes, off, errs, time_plain):
         n_views=nv, prep=prep.zncc)
     full_bitwise = bool(torch.equal(got["full"], zncc))
     f32_bitwise = bool(torch.equal(got["f32take"], got["full"]))
-    log(f"  full == zncc.cu K=8 bitwise {full_bitwise}; f32take == full "
+    log(f"  full (first design) == zncc.cu K=8 bitwise {full_bitwise}; "
+        f"f32take == full "
         f"bitwise {f32_bitwise}")
     assert full_bitwise and f32_bitwise, label
     # the sources the kernel reads, for the plain version under EXPOSING
@@ -825,10 +906,11 @@ def ablation_on_field(label, params, inp, planes, off, errs, time_plain):
         log(f"  {m}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"{cuda_ablate.occupancy(m)} blocks per SM"
             + (f", plain {plain_ms[m]:.3f} ms" if time_plain else ""))
-    zncc_ms = time_ms(lambda: cuda_ncc.multiview_zncc_cuda(
-        inp.ref_img, inp.src_imgs, fvg, planes, params, row_pack_off=off,
-        n_views=nv, prep=prep.zncc), 20)
-    log(f"  zncc.cu K=8 itself {zncc_ms:.4f} ms")
+    ab_time(label, lambda: cuda_ablate.ablate_cuda(
+        "full", planes, prep, params, nv),
+        lambda: cuda_ncc.multiview_zncc_cuda(
+            inp.ref_img, inp.src_imgs, fvg, planes, params, row_pack_off=off,
+            n_views=nv, prep=prep.zncc))
     log_decomposition(f"{label}, own occupancy",
                       {m: times[("own", m)][0] for m in ablate.MODES})
     for name, smem, carve in ABLATE_EQUAL_OCCUPANCY:
@@ -861,15 +943,18 @@ def run_ablation_phase(dev, big, random8):
     (nan_take_probe, then every mode timed; then mosaic_probe) runs with
     the launch counts reset. Then on the tool's converged field and on
     phase 6's random K = 8 field (`random8`, packed at off0 = 0 on the
-    scene `big`) each mode is held to its plain version, `full` bitwise
-    to zncc.cu and f32take bitwise to `full`, each mode is timed at its
-    own occupancy and at 3 blocks per SM, and the decompositions printed
-    (ablation_on_field); last, each mode's registers and SASS counts.
-    Returns the JSON rows of the modes and the probes."""
+    scene `big`) each mode is held to its plain version, `full` (the
+    first design of zncc.cu) bitwise to zncc.cu and f32take bitwise to
+    `full`, each mode is timed at its own occupancy and at 3 blocks per
+    SM, zncc.cu in turns against `full`, and the decompositions of the
+    first design printed (ablation_on_field); last, each mode's and each
+    zncc.cu K's registers and SASS counts, zncc.cu's tap loop held to its
+    design. Returns the JSON rows of the modes and the probes."""
     import torch
 
     from acmmp_tpu_torch.kernels import _build
-    from acmmp_tpu_torch.ops import ablate, cuda_ablate, cuda_probes, probes
+    from acmmp_tpu_torch.ops import (ablate, cuda_ablate, cuda_ncc,
+                                     cuda_probes, probes)
     from acmmp_tpu_torch.tools import mosaic_probe, prop_ablate
 
     rows = []
@@ -960,47 +1045,64 @@ def run_ablation_phase(dev, big, random8):
             mode_times = {m: (times[("own", m)], plain_ms[m])
                           for m in ablate.MODES}
 
-    # ---- 9d: what each mode compiled to ----
+    # ---- 9d: what each mode and each zncc.cu K compiled to ----
+    import re
+
     regs = ptxas_registers(_build.BUILD_LOG.get("ablate", ""))
-    regs.update(ptxas_registers(_build.BUILD_LOG.get("zncc", "")))
     for fn_name, r in sorted(regs.items()):
-        if "ablate_kernel" in fn_name or "zncc_kernelILi8E" in fn_name:
-            mode = (ablate_mode_of(fn_name) if "ablate" in fn_name
-                    else "zncc.cu K=8")
+        if "ablate_kernel" in fn_name:
             # 128-thread blocks an SM holds by registers: 65,536 of them,
             # allocated per warp in units of 256
             per_block = 4 * -(-r * 32 // 256) * 256
             blocks = min(65536 // per_block, 16)
-            log(f"phase 9d: {mode}: {r} registers, {blocks} blocks "
-                f"({4 * blocks} warps) per SM by registers")
+            log(f"phase 9d: {ablate_mode_of(fn_name)}: {r} registers, "
+                f"{blocks} blocks ({4 * blocks} warps) per SM by registers")
     sass = sass_report(_build._target("ablate"), "ablate_kernel")
-    zsass = sass_report(_build._target("zncc"), r"zncc_kernelILi8E")
+    zsass = sass_report(_build._target("zncc"), "zncc_kernel")
     # the SASS counts are the check that each ablation removed what it
-    # claims and nvcc nothing more: without cuobjdump the phase fails
+    # claims and nvcc nothing more, and that zncc.cu's tap loop is what
+    # its design says: without cuobjdump the phase fails
     assert sass is not None and zsass is not None, (
         "cuobjdump not found beside nvcc: no SASS counts")
-    for fn_name, c in {**sass, **zsass}.items():
-        mode = (ablate_mode_of(fn_name) if "ablate" in fn_name
-                else "zncc.cu K=8")
-        loop = ("no backward branch found" if c["loop"] is None else
-                "LDG {} (byte loads {}), MUFU.RCP {}, LDL/STL {}".format(
-                    *c["loop"]))
-        log("phase 9d: {}: SASS LDG {} (byte loads {}), MUFU.RCP {}, "
-            "LDL/STL {}; in the tap loop: {}".format(mode, *c["all"], loop))
-    # each ablation removed what it claims from the tap loop, and nvcc
+    assert len(zsass) == len(cuda_ncc.SUPPORTED_K), sorted(zsass)
+    for fn_name, c in sorted(sass.items()):
+        loop = ("no backward branch found" if c["loop"] is None
+                else sass_line(c["loop"]))
+        log(f"phase 9d: {ablate_mode_of(fn_name)}: SASS {sass_line(c['all'])}"
+            f"; in its loops: {loop}")
+    for fn_name, c in sorted(zsass.items()):
+        K = int(re.search(r"zncc_kernelILi(\d+)E", fn_name).group(1))
+        tap = ("no loop with a MUFU.RCP found" if c["tap"] is None
+               else sass_line(c["tap"]))
+        log(f"phase 9d: zncc.cu K={K}: SASS {sass_line(c['all'])}; in the "
+            f"tap loop ({c['tap_loops']} found): {tap}")
+        # one thread per (pixel, hypothesis), so per hypothesis and tap:
+        # one 32-bit source word (K=1 also reads its two tap weights from
+        # global memory; K>1 from shared memory, beside the taps), one
+        # reciprocal, four byte selects and no conversion; no local memory
+        # anywhere
+        t = c["tap"]
+        assert c["tap_loops"] == 1 and t is not None, (K, c)
+        assert t["ldg"] == t["ldg32"] == (3 if K == 1 else 1), (K, t)
+        assert t["lds"] == (1 if K == 1 else 2), (K, t)
+        assert t["rcp"] == 1 and t["prmt"] == 4, (K, t)
+        assert t["i2f"] == t["f2i"] == t["frnd"] == 0, (K, t)
+        assert c["all"]["local"] == 0, (K, c["all"])
+    # each ablation removed what it claims from its tap loop, and nvcc
     # removed nothing more: the same byte loads in full, noext and
     # nobounds, none in noscan (nor anywhere in it), f32 words instead in
     # f32take; the same reciprocals but in nobounds, which has none
     loop = {ablate_mode_of(n): c["loop"] for n, c in sass.items()}
     assert sorted(loop) == sorted(ablate.MODES), loop
     assert all(v is not None for v in loop.values()), loop
-    ldg, u8, rcp, _ = ({m: v[i] for m, v in loop.items()} for i in range(4))
+    ldg, u8, rcp = ({m: v[key] for m, v in loop.items()}
+                    for key in ("ldg", "ldg_u8", "rcp"))
     assert u8["full"] == u8["noext"] == u8["nobounds"] > 0, loop
     assert u8["noscan"] == u8["f32take"] == 0, loop
     assert ldg["f32take"] == ldg["full"], loop
     assert rcp["full"] == rcp["noext"] == rcp["noscan"] == rcp[
         "f32take"] > 0 == rcp["nobounds"], loop
-    assert [c["all"][1] for n, c in sass.items()
+    assert [c["all"]["ldg_u8"] for n, c in sass.items()
             if ablate_mode_of(n) == "noscan"] == [0], sass
 
     for m in ablate.MODES:
@@ -1040,7 +1142,7 @@ def main() -> int:
     from acmmp_tpu_torch.engine.inputs import build_solver_inputs
     from acmmp_tpu_torch.engine.patchmatch import Mode, run_patchmatch
     from acmmp_tpu_torch.kernels import _build
-    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, keys
+    from acmmp_tpu_torch.ops import cuda_ablate, cuda_geom, cuda_ncc, keys
     from acmmp_tpu_torch.ops import geom as geom_ops
     from acmmp_tpu_torch.ops import ncc as ncc_ops
     from acmmp_tpu_torch.ops import parity, sampling
@@ -1100,7 +1202,9 @@ def main() -> int:
     max_err = {k: 0.0 for k in cuda_ncc.SUPPORTED_K}
 
     def compare(inputs, planes, off0, label, origin=None):
-        """Kernel vs plain on the same inputs; K-stack vs K=1 launches."""
+        """Kernel vs plain on the same inputs; K-stack vs K=1 launches; a
+        packed K=8 stack also bitwise against the kernel's first design
+        (csrc/ablate.cu `full`)."""
         vg = ncc_ops.make_view_geometry(inputs.ref_cam, inputs.src_cams)
         nv = int(inputs.view_mask.sum())
         K = planes.shape[0]
@@ -1128,9 +1232,17 @@ def main() -> int:
         pad_ok = bool((got[..., nv:] == params.cost_max).all())
         singles = [run(params, pk[k:k + 1].contiguous()) for k in range(K)]
         bitwise = bool(torch.equal(torch.cat(singles), got))
+        first = ""
+        if K == 8 and off0 is not None and origin is None:
+            aprep = cuda_ablate.prepare(inputs.ref_img, inputs.src_imgs, vg,
+                                        params, off0)
+            same = bool(torch.equal(
+                cuda_ablate.ablate_cuda("full", pk, aprep, params, nv), got))
+            first = f" == first design {same}"
+            assert same, label
         log(f"  {label}: K={K} shape {tuple(got.shape)} bad {bad:.2e} "
             f"max|d| {err:.3e} padded-slot cost_max {pad_ok} "
-            f"K-stack==K x K=1 {bitwise}")
+            f"K-stack==K x K=1 {bitwise}{first}")
         assert bad < ZNCC_MAX_FRAC, (label, bad)
         assert pad_ok, label
         assert bitwise, label
@@ -1170,6 +1282,10 @@ def main() -> int:
         for K in (8, 3, 2):
             compare(inputs, true_planes(inputs, pz, K, 50 + K), 0,
                     "coherent off0=0")
+        compare(inputs, random_planes(inputs, 8, 33, 0.125, 0.25), 0,
+                "random window+cap off0=0")
+        compare(inputs, random_planes(inputs, 8, 34, 0.0, 0.0), 1,
+                "random exact off0=1")
         compare(inputs, random_planes(inputs, 2, 32, 0.125, 0.25), 1,
                 "random window+cap off0=1")
     del coarse_in
@@ -1430,15 +1546,27 @@ def main() -> int:
                 "operations" if t_ops >= t_bytes else "bytes", evals)
 
     log("phase 6: per-launch times (CUDA events)")
+    zregs = ptxas_registers(_build.BUILD_LOG.get("zncc", ""))
+    T = len(params.tap_offsets) ** 2
+    for K in cuda_ncc.SUPPORTED_K:
+        blocks, threads = cuda_ncc.occupancy(K, T)
+        (r,) = [v for n, v in zregs.items() if f"zncc_kernelILi{K}E" in n]
+        log(f"  zncc.cu K={K}: {r} registers (ptxas), {blocks} blocks of "
+            f"{threads} threads = {blocks * threads // 32} warps per SM "
+            f"(occupancy calculator, {T} taps)")
+        # the design's register budget; the first design held 12 warps
+        # per SM at K=8
+        assert r <= 64, (K, r)
+        assert K != 8 or blocks * threads // 32 >= 24, (blocks, threads)
     rows, table = [], {}
     for label, inputs in (("320x240", small4), ("1600x1184", big)):
         vg = ncc_ops.make_view_geometry(inputs.ref_cam, inputs.src_cams)
         nv = int(inputs.view_mask.sum())
         H, W = inputs.ref_img.shape
         preps = {None: cuda_ncc.prepare(inputs.ref_img, inputs.src_imgs, vg,
-                                        params, None),
-                 0: cuda_ncc.prepare(inputs.ref_img, inputs.src_imgs, vg,
-                                     params, 0)}
+                                        params, None)}
+        preps[0] = cuda_ncc.prepare(inputs.ref_img, inputs.src_imgs, vg,
+                                    params, 0, shared=preps[None])
         for K in (1, 8, 3, 2):
             off0 = None if K == 1 else 0
             Hg = H if off0 is None else H // 2
@@ -1467,6 +1595,14 @@ def main() -> int:
             log(f"  {label} K={K} grid {Hg}x{W} views {nv}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}), {evals / (ms * 1e-3) / 1e9:.2f} G tap-evals/s")
+            if label == "1600x1184" and K == 8:
+                # the field of phase 9's second decomposition (same key)
+                aprep = cuda_ablate.prepare(inputs.ref_img, inputs.src_imgs,
+                                            vg, params, off0)
+                ab_time("phase 6 random field, 1600x1184",
+                        lambda: cuda_ablate.ablate_cuda("full", planes, aprep,
+                                                        params, nv), kern)
+                del aprep
 
     def geom_bound(inputs, K, Hg, W):
         V, Hs, Ws = inputs.src_imgs.shape
