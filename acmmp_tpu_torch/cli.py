@@ -8,7 +8,7 @@ and ``fuse`` subcommands of ``acmmp_tpu/cli.py``:
 
 Both run on CUDA unless ``--device`` says otherwise. The other
 subcommands of the JAX package, ``--mesh`` and ``--view_batch > 1`` are
-not ported yet (ROADMAP Queue 1 items 11-12)."""
+not ported yet (ROADMAP Queue 1 items 4 and 6)."""
 
 from __future__ import annotations
 

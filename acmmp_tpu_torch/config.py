@@ -195,7 +195,7 @@ class PipelineConfig:
     pad_w: int = 128
     # solve this many reference views per dispatch (batch-mapped stages);
     # >1 enables the JAX package's batched executor, not ported yet: the
-    # port's run_pipeline raises for it (ROADMAP Queue 1 item 12)
+    # port's run_pipeline raises for it (ROADMAP Queue 1 items 3 and 6)
     view_batch: int = 1
     # stage-level resume: skip a (view, scale, mode) solve whose pass
     # marker (.pass_NNN.json next to its .dmb outputs) records a completed

@@ -9,7 +9,7 @@
 // For every output pixel p of the (possibly parity-packed) grid, source
 // view v < n_views and hypothesis k, it warps the T patch taps of p through
 // the plane-induced homography of plane k (rank-1 form p00 + di*u + dj*t,
-// pallas_ncc.py:292-322), reads the uint8 source bilinearly with exact f32
+// pallas_ncc.py:292-322), reads the source bilinearly with exact f32
 // weights after clamping to the view's true extent (core/geometry.py:219),
 // accumulates the bilateral-weighted source sums against the reference-side
 // weights the wrapper precomputes, and writes
@@ -60,6 +60,22 @@
 //     one floorf, (int) and (float) gave.
 // The tap loop is kept rolled (#pragma unroll 1): one word gather and one
 // reciprocal per iteration, which chip_smoke.py reads from the SASS.
+//
+// Two source types, one template (the Src parameter), both branches of
+// the JAX kernels (pallas_ncc.py:166-174, PatchMatchParams.ncc_src_u8):
+//   * uint32_t, the 8-bit sources as 2x2 words (above), the default;
+//   * float4, float sources as 2x2 quads of f32 (ops/cuda_ncc.py
+//     pack_2x2_f32, the same order and clamp): one 16-byte gather per tap,
+//     no byte select. The JAX kernel stores float sources as bf16 only to
+//     fit the TPU's VMEM; ncc_src_u8=False means float sampling, as the
+//     jnp oracle and the plain version compute it, so this reads f32. The
+//     quads take 16 bytes a source pixel (252 MB at 1600x1184 / 8
+//     sources, against 63 MB of words), which the card's memory affords;
+//     four scalar loads from one f32 map would put four dependent gathers
+//     back into the tap loop.
+// Everything else, placement, bilinear, moments and epilogue, is the same
+// code: a byte becomes f32 exactly, so on u8-valued floats the float4
+// instantiation gives the uint32_t one's bits.
 //
 // The moments are accumulated over centred values: reference taps minus
 // the reference pixel's own value (the wrapper does that side), source
@@ -160,10 +176,34 @@ __device__ __forceinline__ float byte_f32(uint32_t q) {
       __int_as_float(__byte_perm(q, kTwo23Bits, kByteSelect + n)), kTwo23);
 }
 
-// Bilinear read of view v's 2x2 words (from word voff = v * Hs * Ws of
-// src) at the homogeneous point (px, py, pz), clamped to the true extent
-// [0, sx_max] x [0, sy_max], exact f32 weights
-__device__ __forceinline__ float sample(const uint32_t* __restrict__ src,
+// The pixels (y0, x0), (y0, x1), (y1, x0), (y1, x1) of a bilinear read
+// from element e of the sources, as f32: a 2x2 word of bytes through the
+// mantissa, or a 2x2 quad of floats as it is
+__device__ __forceinline__ void corners(const uint32_t* __restrict__ src,
+                                        unsigned e, float& v00, float& v10,
+                                        float& v01, float& v11) {
+  const uint32_t q = __ldg(src + e);
+  v00 = byte_f32<0>(q);
+  v10 = byte_f32<1>(q);
+  v01 = byte_f32<2>(q);
+  v11 = byte_f32<3>(q);
+}
+
+__device__ __forceinline__ void corners(const float4* __restrict__ src,
+                                        unsigned e, float& v00, float& v10,
+                                        float& v01, float& v11) {
+  const float4 q = __ldg(src + e);
+  v00 = q.x;
+  v10 = q.y;
+  v01 = q.z;
+  v11 = q.w;
+}
+
+// Bilinear read of view v's 2x2 elements (from element voff = v * Hs * Ws
+// of src) at the homogeneous point (px, py, pz), clamped to the true
+// extent [0, sx_max] x [0, sy_max], exact f32 weights
+template <typename Src>
+__device__ __forceinline__ float sample(const Src* __restrict__ src,
                                         unsigned voff, int Ws, float px,
                                         float py, float pz, float sx_max,
                                         float sy_max) {
@@ -178,23 +218,20 @@ __device__ __forceinline__ float sample(const uint32_t* __restrict__ src,
   const float yf = floor_u23(sy, y0);
   const float fx = __fsub_rn(sx, xf);
   const float fy = __fsub_rn(sy, yf);
-  // (y0, x0), (y0, x1), (y1, x0), (y1, x1) in bytes 0-3; an unsigned
-  // 32-bit index (V * Hs * Ws < 2^31) is one wide multiply-add off src
-  const uint32_t q = __ldg(src + (voff + (unsigned)(y0 * Ws + x0)));
-  const float v00 = byte_f32<0>(q);
-  const float v10 = byte_f32<1>(q);
-  const float v01 = byte_f32<2>(q);
-  const float v11 = byte_f32<3>(q);
+  // an unsigned 32-bit index (V * Hs * Ws < 2^31) is one wide
+  // multiply-add off src
+  float v00, v10, v01, v11;
+  corners(src, voff + (unsigned)(y0 * Ws + x0), v00, v10, v01, v11);
   const float a0 = __fsub_rn(1.0f, fx);
   const float top = __fmaf_rn(fx, v10, __fmul_rn(a0, v00));
   const float bot = __fmaf_rn(fx, v11, __fmul_rn(a0, v01));
   return __fmaf_rn(fy, bot, __fmul_rn(__fsub_rn(1.0f, fy), top));
 }
 
-template <int K>
+template <int K, typename Src>
 __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
     zncc_kernel(const float4* __restrict__ planes,   // [K, npix] (n, w)
-                const uint32_t* __restrict__ src,    // [V, Hs, Ws] 2x2 words
+                const Src* __restrict__ src,         // [V, Hs, Ws] 2x2 each
                 const float* __restrict__ w_taps,    // [T, npix]
                 const float* __restrict__ wr_taps,   // [T, npix]
                 const float* __restrict__ refsums,   // [3, npix]
@@ -338,7 +375,7 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
       (degenerate || !in_bounds) ? cost_max : ncc;
 }
 
-template <int K>
+template <int K, typename Src>
 cudaError_t launch(const void* planes, const void* src, const void* w_taps,
                    const void* wr_taps, const void* refsums,
                    const void* consts, const void* taps, void* out, int V,
@@ -349,14 +386,14 @@ cudaError_t launch(const void* planes, const void* src, const void* w_taps,
   const size_t smem = smem_bytes<K>(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        zncc_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        zncc_kernel<K, Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int npix = Hg * W;
   const dim3 grid(((npix + S::kPix - 1) / S::kPix) * V);
-  zncc_kernel<K><<<grid, S::kThreads, smem, stream>>>(
-      static_cast<const float4*>(planes), static_cast<const uint32_t*>(src),
+  zncc_kernel<K, Src><<<grid, S::kThreads, smem, stream>>>(
+      static_cast<const float4*>(planes), static_cast<const Src*>(src),
       static_cast<const float*>(w_taps), static_cast<const float*>(wr_taps),
       static_cast<const float*>(refsums), static_cast<const float*>(consts),
       static_cast<const float2*>(taps), static_cast<float*>(out), V, n_views,
@@ -364,32 +401,39 @@ cudaError_t launch(const void* planes, const void* src, const void* w_taps,
   return cudaGetLastError();
 }
 
-template <int K>
+template <int K, typename Src>
 cudaError_t occupancy(int T, int* blocks, int* threads) {
   *threads = Shape<K>::kThreads;
   const size_t smem = smem_bytes<K>(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        zncc_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        zncc_kernel<K, Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, zncc_kernel<K>, Shape<K>::kThreads, smem);
+      blocks, zncc_kernel<K, Src>, Shape<K>::kThreads, smem);
 }
 
-// f(Shape<K>{}) for a supported K
+// f(Shape<K>{}, Src{}) for a supported K and source type (src_f32: 0 the
+// 2x2 words of 8-bit sources, 1 the 2x2 quads of float sources)
 template <typename F>
-int dispatch(int K, F f) {
+int dispatch(int K, int src_f32, F f) {
+  if (src_f32 != 0 && src_f32 != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto by_type = [&](auto shape) {
+    return src_f32 ? static_cast<int>(f(shape, float4{}))
+                   : static_cast<int>(f(shape, uint32_t{}));
+  };
   switch (K) {
     case 1:
-      return static_cast<int>(f(Shape<1>{}));
+      return by_type(Shape<1>{});
     case 2:
-      return static_cast<int>(f(Shape<2>{}));
+      return by_type(Shape<2>{});
     case 3:
-      return static_cast<int>(f(Shape<3>{}));
+      return by_type(Shape<3>{});
     case 8:
-      return static_cast<int>(f(Shape<8>{}));
+      return by_type(Shape<8>{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -398,28 +442,30 @@ int dispatch(int K, F f) {
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). `src` points at the sources'
-// 2x2 words [V, Hs, Ws] (int32). The launch returns cudaGetLastError()
-// after it, or cudaErrorInvalidValue for an unsupported K.
+// 2x2 words [V, Hs, Ws] (int32) when src_f32 is 0, at their 2x2 quads
+// [V, Hs, Ws, 4] (f32) when it is 1. The launch returns cudaGetLastError()
+// after it, or cudaErrorInvalidValue for an unsupported K or source type.
 extern "C" int acmmp_zncc_launch(
-    int K, const void* planes, const void* src, const void* w_taps,
-    const void* wr_taps, const void* refsums, const void* consts,
-    const void* taps, void* out, int V, int n_views, int Hg, int W, int Hs,
-    int Ws, int T, float oy, float ox, int row_pack_off, float cost_max,
-    float min_var, void* stream) {
-  return dispatch(K, [&](auto shape) {
-    return launch<decltype(shape)::kK>(
+    int K, int src_f32, const void* planes, const void* src,
+    const void* w_taps, const void* wr_taps, const void* refsums,
+    const void* consts, const void* taps, void* out, int V, int n_views,
+    int Hg, int W, int Hs, int Ws, int T, float oy, float ox,
+    int row_pack_off, float cost_max, float min_var, void* stream) {
+  return dispatch(K, src_f32, [&](auto shape, auto src_type) {
+    return launch<decltype(shape)::kK, decltype(src_type)>(
         planes, src, w_taps, wr_taps, refsums, consts, taps, out, V, n_views,
         Hg, W, Hs, Ws, T, oy, ox, row_pack_off, cost_max, min_var,
         static_cast<cudaStream_t>(stream));
   });
 }
 
-// The blocks of zncc_kernel<K> an SM holds with T taps, by the runtime's
-// occupancy calculator, into *blocks, and the threads of a block into
-// *threads.
-extern "C" int acmmp_zncc_occupancy(int K, int T, int* blocks,
+// The blocks of zncc_kernel<K, Src> an SM holds with T taps, by the
+// runtime's occupancy calculator, into *blocks, and the threads of a block
+// into *threads.
+extern "C" int acmmp_zncc_occupancy(int K, int src_f32, int T, int* blocks,
                                     int* threads) {
-  return dispatch(K, [&](auto shape) {
-    return occupancy<decltype(shape)::kK>(T, blocks, threads);
+  return dispatch(K, src_f32, [&](auto shape, auto src_type) {
+    return occupancy<decltype(shape)::kK, decltype(src_type)>(T, blocks,
+                                                            threads);
   });
 }

@@ -44,15 +44,18 @@ def total_launches() -> int:
 class AblatePrep(NamedTuple):
     """The kernel's inputs for one packed layout."""
 
-    zncc: cuda_ncc.ZnccPrep    # u8 sources, constants, taps, ref side
-    src_f32: torch.Tensor      # [V, Hs, Ws] the u8 sources widened (f32take)
+    zncc: cuda_ncc.ZnccPrep    # sources, constants, taps, ref side
+    src_f32: torch.Tensor      # [V, Hs, Ws] f32 sources f32take reads
 
 
 def prepare(ref_img: torch.Tensor, src_imgs: torch.Tensor,
             vg: ncc_ops.ViewGeometry, params: PatchMatchParams,
             off0: int) -> AblatePrep:
     """The inputs of every mode on the parity-packed grid `off0`; the
-    f32take sources are widened here, once, outside any timed launch."""
+    f32take sources are the 8-bit ones widened here, once, outside any
+    timed launch. f32take alone also runs on an AblatePrep of a float-
+    source prep (cuda_ncc.prepare with ncc_src_u8=False) and any f32
+    sources, the first design on those."""
     zp = cuda_ncc.prepare(ref_img, src_imgs, vg, params, off0)
     return AblatePrep(zp, zp.src_u8.to(torch.float32))
 
@@ -103,12 +106,17 @@ def ablate_cuda(mode: str, planes: torch.Tensor, prep: AblatePrep,
         raise ValueError("ablate kernel: prep must be for a packed grid")
     dev = planes.device
     T, Hg, W = zp.w_taps.shape
-    V, Hs, Ws = zp.src_u8.shape
-    src = prep.src_f32 if mode == "f32take" else zp.src_u8
+    V, Hs, Ws = prep.src_f32.shape
     check_arg("ablate", "planes", planes, torch.float32, (K, Hg, W, 4), dev)
-    check_arg("ablate", "src_f32", prep.src_f32, torch.float32, (V, Hs, Ws),
-              dev)
-    check_arg("ablate", "src_u8", zp.src_u8, torch.uint8, (V, Hs, Ws), dev)
+    if mode == "f32take":
+        src = prep.src_f32
+        check_arg("ablate", "src_f32", src, torch.float32, (V, Hs, Ws), dev)
+    else:
+        src = zp.src_u8
+        if src is None:
+            raise ValueError(f"ablate kernel: mode {mode!r} reads 8-bit "
+                             "sources, the prep holds float ones")
+        check_arg("ablate", "src_u8", src, torch.uint8, (V, Hs, Ws), dev)
     check_arg("ablate", "consts", zp.consts, torch.float32,
               (cuda_ncc._HEADER + cuda_ncc._VIEW_STRIDE * V,), dev)
     check_arg("ablate", "taps", zp.taps, torch.float32, (T, 2), dev)

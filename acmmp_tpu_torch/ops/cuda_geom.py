@@ -9,7 +9,12 @@ raises.
 
 ``prepare`` does the per-solve part once (the camera constants and the
 contiguous depth stack), so a geometric solve's 9 launches repeat none
-of it."""
+of it.
+
+``geom_first_cuda`` launches the kernel's first design, kept frozen in
+the same source as the yardstick of the redesign (bitwise and in time);
+only chip_smoke.py and the cuda-marked test call it, and its launches
+count in ``first_launches``, apart from ``launches``."""
 
 from __future__ import annotations
 
@@ -26,14 +31,16 @@ SUPPORTED_K = (1, 5, 8)
 _HEADER = 24        # consts floats of the reference camera: K, R, t
 _VIEW_STRIDE = 24   # consts floats per view: K, R, t, width, height
 
-# launches of the kernel by K; the wrapper adds one where it launches and
-# nowhere else
+# launches of the kernel by K, and of its first design; each wrapper adds
+# one where it launches and nowhere else
 launches = {k: 0 for k in SUPPORTED_K}
+first_launches = {k: 0 for k in SUPPORTED_K}
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, first_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def total_launches() -> int:
@@ -68,12 +75,26 @@ def _lib():
     from acmmp_tpu_torch.kernels import _build
 
     lib = _build.load("geom")
-    fn = lib.acmmp_geom_launch
-    if fn.argtypes is None:
+    if lib.acmmp_geom_launch.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ci] + [vp] * 4 + [ci] * 7 + [cf, vp]
-        fn.restype = ci
-    return fn
+        for fn in (lib.acmmp_geom_launch, lib.acmmp_geom_first_launch):
+            fn.argtypes = [ci] + [vp] * 4 + [ci] * 7 + [cf, vp]
+            fn.restype = ci
+        occ = lib.acmmp_geom_occupancy
+        occ.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        occ.restype = ci
+    return lib
+
+
+def occupancy(V: int):
+    """(blocks of the kernel an SM holds for V views, by the CUDA
+    runtime's occupancy calculator; threads per block)."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().acmmp_geom_occupancy(int(V), ctypes.byref(blocks),
+                                     ctypes.byref(threads))
+    if rc != 0:
+        raise RuntimeError(f"geom kernel occupancy failed: cudaError {rc}")
+    return blocks.value, threads.value
 
 
 def geom_consistency_cost_cuda(ref_cam: geo.Camera, src_cams: geo.Camera,
@@ -86,6 +107,24 @@ def geom_consistency_cost_cuda(ref_cam: geo.Camera, src_cams: geo.Camera,
     [Hg, W, 4]) -> [K, Hg, W, V] (or [Hg, W, V]). The kernel rebuilds the
     pixel grid from the parity offset `row_pack_off` (host int, None for
     the full grid). `n_views` is a host int."""
+    return _launch("acmmp_geom_launch", launches, ref_cam, src_cams,
+                   src_depths, planes, params, row_pack_off, n_views, prep)
+
+
+def geom_first_cuda(ref_cam: geo.Camera, src_cams: geo.Camera,
+                    src_depths: torch.Tensor, planes: torch.Tensor,
+                    params: PatchMatchParams, row_pack_off=None,
+                    n_views=None, prep: Optional[GeomPrep] = None
+                    ) -> torch.Tensor:
+    """geom_consistency_cost_cuda through the kernel's first design, the
+    redesign's yardstick; its launches count in `first_launches`."""
+    return _launch("acmmp_geom_first_launch", first_launches, ref_cam,
+                   src_cams, src_depths, planes, params, row_pack_off,
+                   n_views, prep)
+
+
+def _launch(entry, counts, ref_cam, src_cams, src_depths, planes, params,
+            row_pack_off, n_views, prep):
     planes, squeeze = hypothesis_stack("geom", planes, SUPPORTED_K)
     K, Hg, W = planes.shape[:3]
     V, Hs, Ws = src_depths.shape
@@ -106,10 +145,11 @@ def geom_consistency_cost_cuda(ref_cam: geo.Camera, src_cams: geo.Camera,
     out = torch.empty((K, Hg, W, V), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib()(K, planes.data_ptr(), prep.depths.data_ptr(),
-                    prep.consts.data_ptr(), out.data_ptr(), V, nv, Hg, W, Hs,
-                    Ws, off, float(params.geom_cost_max), stream)
+        rc = getattr(_lib(), entry)(
+            K, planes.data_ptr(), prep.depths.data_ptr(),
+            prep.consts.data_ptr(), out.data_ptr(), V, nv, Hg, W, Hs, Ws, off,
+            float(params.geom_cost_max), stream)
     if rc != 0:
         raise RuntimeError(f"geom kernel launch failed: cudaError {rc}")
-    launches[K] += 1
+    counts[K] += 1
     return out[0] if squeeze else out

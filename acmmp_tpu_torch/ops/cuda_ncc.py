@@ -9,12 +9,14 @@ given, allocates the output, launches on the current stream and raises if
 the launch failed. There is no fallback: a tensor the kernel does not
 take raises.
 
-``prepare`` does the per-solve part once (the sources' 2x2 words,
+``prepare`` does the per-solve part once (the sources' 2x2 elements,
 homography constants and tap offsets, shared by every grid layout of the
 solve; the reference-side weights of one layout), so a solve's 13
-launches repeat none of it. The 2x2 words are plain tensor code
-(``pack_2x2``): the kernel reads one 32-bit word per tap where it would
-read four bytes."""
+launches repeat none of it. The 2x2 elements are plain tensor code: for
+8-bit sources (``PatchMatchParams.ncc_src_u8``, the default) one 32-bit
+word of four bytes per pixel (``pack_2x2``), for float sources one quad
+of four f32 (``pack_2x2_f32``); the kernel reads one element per tap
+where it would read four pixels."""
 
 from __future__ import annotations
 
@@ -32,31 +34,46 @@ SUPPORTED_K = (1, 2, 3, 8)
 _HEADER = 16        # consts floats before the per-view block (K^{-T})
 _VIEW_STRIDE = 16   # consts floats per view: A (9), B (3), width, height
 
-# launches of the kernel by K; the wrapper adds one where it launches and
+# launches of the kernel by K, on 8-bit sources (`launches`) and on float
+# sources (`launches_f32`); the wrapper adds one where it launches and
 # nowhere else
 launches = {k: 0 for k in SUPPORTED_K}
+launches_f32 = {k: 0 for k in SUPPORTED_K}
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, launches_f32):
+        for k in counts:
+            counts[k] = 0
 
 
 def total_launches() -> int:
-    return sum(launches.values())
+    return sum(launches.values()) + sum(launches_f32.values())
+
+
+def source_type(params: PatchMatchParams) -> str:
+    """"u8" for 8-bit sources (ncc_src_u8), else "f32"."""
+    return "u8" if params.ncc_src_u8 else "f32"
 
 
 class ZnccPrep(NamedTuple):
-    """Per-solve inputs of the kernel for one grid layout."""
+    """Per-solve inputs of the kernel for one grid layout. It holds one
+    source type (`src_type`): the 8-bit sources and their words, or the
+    float quads, never both."""
 
-    src_u8: torch.Tensor     # [V, Hs, Ws] uint8
-    src_q: torch.Tensor      # [V, Hs, Ws] int32 2x2 words (pack_2x2)
+    src_u8: Optional[torch.Tensor]   # [V, Hs, Ws] uint8 (8-bit sources)
+    src_q: Optional[torch.Tensor]    # [V, Hs, Ws] int32 2x2 words (pack_2x2)
+    src_f4: Optional[torch.Tensor]   # [V, Hs, Ws, 4] f32 quads (pack_2x2_f32)
     consts: torch.Tensor     # [16 + 16 V] f32: K^{-T}, then A, B, w, h per view
     taps: torch.Tensor       # [T, 2] f32 (di, dj)
     w_taps: torch.Tensor     # [T, Hg, W] bilateral weights
     wr_taps: torch.Tensor    # [T, Hg, W] weights x centred reference taps
     refsums: torch.Tensor    # [3, Hg, W] sum_w, sum_ref, sum_ref^2
     row_pack_off: int        # -1: full grid, else the parity offset off0
+
+    @property
+    def src_type(self) -> str:
+        return "u8" if self.src_q is not None else "f32"
 
 
 def ref_side(ref_img: torch.Tensor, params: PatchMatchParams):
@@ -80,27 +97,34 @@ def ref_side(ref_img: torch.Tensor, params: PatchMatchParams):
             torch.stack([sum_w, sum_ref, sum_ref_ref]))
 
 
-def pack_2x2(src_u8: torch.Tensor, widths: torch.Tensor,
-             heights: torch.Tensor) -> torch.Tensor:
-    """The 2x2 words the kernel gathers: [V, Hs, Ws] uint8 -> int32 with
-    q[v, y, x] = b(y, x) | b(y, x1) << 8 | b(y1, x) << 16 | b(y1, x1) << 24,
-    x1 = min(x + 1, xi_max), y1 = min(y + 1, yi_max), where xi_max =
+def _far_sides(src: torch.Tensor, widths: torch.Tensor,
+               heights: torch.Tensor):
+    """(x1, y1), each [V, Hs, Ws] int64, of every pixel of `src` [V, Hs,
+    Ws]: x1 = min(x + 1, xi_max), y1 = min(y + 1, yi_max), where xi_max =
     (int)(width_v - 1) and yi_max = (int)(height_v - 1) in f32 as the
     kernel forms them: the clamp of its bilinear read to the view's true
-    extent, which may be smaller than the padded Hs x Ws. A word past the
-    true extent is never read; its far side is kept inside the array."""
-    V, Hs, Ws = src_u8.shape
-    dev = src_u8.device
+    extent, which may be smaller than the padded Hs x Ws. Past the true
+    extent the far side is kept inside the array."""
+    V, Hs, Ws = src.shape
 
     def far(n, extent):
         # [V, n]: min(i + 1, (int)(extent - 1)), kept in [0, n)
         hi = (extent.to(torch.float32) - 1.0).to(torch.int64)
-        i = torch.arange(n, device=dev, dtype=torch.int64)
+        i = torch.arange(n, device=src.device, dtype=torch.int64)
         return torch.clamp(torch.minimum(i + 1, hi[:, None]), 0, n - 1)
 
+    return (far(Ws, widths)[:, None, :].expand(V, Hs, Ws),
+            far(Hs, heights)[:, :, None].expand(V, Hs, Ws))
+
+
+def pack_2x2(src_u8: torch.Tensor, widths: torch.Tensor,
+             heights: torch.Tensor) -> torch.Tensor:
+    """The 2x2 words the kernel gathers from 8-bit sources: [V, Hs, Ws]
+    uint8 -> int32 with q[v, y, x] = b(y, x) | b(y, x1) << 8 | b(y1, x) <<
+    16 | b(y1, x1) << 24, x1 and y1 the far sides of `_far_sides`. A word
+    past the true extent is never read."""
     b = src_u8.to(torch.int64)
-    x1 = far(Ws, widths)[:, None, :].expand(V, Hs, Ws)
-    y1 = far(Hs, heights)[:, :, None].expand(V, Hs, Ws)
+    x1, y1 = _far_sides(src_u8, widths, heights)
     down = torch.gather(b, 1, y1)
     q = (b | torch.gather(b, 2, x1) << 8 | down << 16
          | torch.gather(down, 2, x1) << 24)
@@ -108,26 +132,47 @@ def pack_2x2(src_u8: torch.Tensor, widths: torch.Tensor,
     return (q - ((q >> 31) << 32)).to(torch.int32)
 
 
+def pack_2x2_f32(src: torch.Tensor, widths: torch.Tensor,
+                 heights: torch.Tensor) -> torch.Tensor:
+    """The 2x2 quads the kernel gathers from float sources: [V, Hs, Ws]
+    f32 -> [V, Hs, Ws, 4] f32 with q[v, y, x] = (s(y, x), s(y, x1),
+    s(y1, x), s(y1, x1)), x1 and y1 the far sides of `_far_sides`, the
+    order of pack_2x2's bytes. A quad past the true extent is never
+    read."""
+    src = src.to(torch.float32)
+    x1, y1 = _far_sides(src, widths, heights)
+    down = torch.gather(src, 1, y1)
+    return torch.stack([src, torch.gather(src, 2, x1), down,
+                        torch.gather(down, 2, x1)], dim=-1).contiguous()
+
+
 def prepare(ref_img: torch.Tensor, src_imgs: torch.Tensor,
             vg: ncc_ops.ViewGeometry, params: PatchMatchParams,
             row_pack_off: Optional[int] = None,
             shared: Optional[ZnccPrep] = None) -> ZnccPrep:
     """The kernel's per-solve inputs for one layout (full grid when
-    `row_pack_off` is None, else the parity-packed half grid). `shared`,
-    a prep of the same solve for another layout, gives the sources'
-    words, the constants and the taps, which do not depend on it."""
-    if not params.ncc_src_u8:
-        raise NotImplementedError(
-            "the ZNCC kernel reads 8-bit sources (ncc_src_u8=True); use "
-            "ncc_backend='plain' for float sources")
+    `row_pack_off` is None, else the parity-packed half grid), for the
+    source type of `params` (source_type): the 8-bit sources and their
+    2x2 words, or the float sources' 2x2 quads. `shared`, a prep of the
+    same solve for another layout, gives the sources' elements, the
+    constants and the taps, which do not depend on it."""
     dev = ref_img.device
+    kind = source_type(params)
     if shared is not None:
-        src_u8, src_q = shared.src_u8, shared.src_q
+        if shared.src_type != kind:
+            raise ValueError(f"zncc kernel: shared prep holds "
+                             f"{shared.src_type} sources, params ask for "
+                             f"{kind}")
+        src_u8, src_q, src_f4 = shared.src_u8, shared.src_q, shared.src_f4
         consts, taps = shared.consts, shared.taps
     else:
-        src_u8 = torch.round(torch.clamp(src_imgs, 0.0, 255.0)).to(
-            torch.uint8).contiguous()
-        src_q = pack_2x2(src_u8, vg.src_width, vg.src_height)
+        src_u8 = src_q = src_f4 = None
+        if kind == "u8":
+            src_u8 = torch.round(torch.clamp(src_imgs, 0.0, 255.0)).to(
+                torch.uint8).contiguous()
+            src_q = pack_2x2(src_u8, vg.src_width, vg.src_height)
+        else:
+            src_f4 = pack_2x2_f32(src_imgs, vg.src_width, vg.src_height)
         V = src_imgs.shape[0]
         consts = torch.zeros(_HEADER + _VIEW_STRIDE * V, dtype=torch.float32,
                              device=dev)
@@ -147,7 +192,7 @@ def prepare(ref_img: torch.Tensor, src_imgs: torch.Tensor,
         w_taps = parity.pack_rows(w_taps, off)
         wr_taps = parity.pack_rows(wr_taps, off)
         refsums = parity.pack_rows(refsums, off)
-    return ZnccPrep(src_u8, src_q, consts, taps, w_taps.contiguous(),
+    return ZnccPrep(src_u8, src_q, src_f4, consts, taps, w_taps.contiguous(),
                     wr_taps.contiguous(), refsums.contiguous(), off)
 
 
@@ -158,20 +203,23 @@ def _lib():
     fn = lib.acmmp_zncc_launch
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ci] + [vp] * 8 + [ci] * 7 + [cf, cf, ci, cf, cf, vp]
+        fn.argtypes = ([ci, ci] + [vp] * 8 + [ci] * 7
+                       + [cf, cf, ci, cf, cf, vp])
         fn.restype = ci
         occ = lib.acmmp_zncc_occupancy
-        occ.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        occ.argtypes = [ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
         occ.restype = ci
     return lib
 
 
-def occupancy(K: int, T: int):
-    """(blocks of the K kernel an SM holds with T taps, by the CUDA
-    runtime's occupancy calculator; threads per block)."""
+def occupancy(K: int, T: int, src_type: str = "u8"):
+    """(blocks of the K kernel on `src_type` sources ("u8" or "f32") an
+    SM holds with T taps, by the CUDA runtime's occupancy calculator;
+    threads per block)."""
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
     rc = _lib().acmmp_zncc_occupancy(
-        int(K), int(T), ctypes.byref(blocks), ctypes.byref(threads))
+        int(K), int(src_type == "f32"), int(T), ctypes.byref(blocks),
+        ctypes.byref(threads))
     if rc != 0:
         raise RuntimeError(f"zncc kernel occupancy failed: cudaError {rc}")
     return blocks.value, threads.value
@@ -198,9 +246,20 @@ def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
     if prep.row_pack_off != want_off:
         raise ValueError(f"zncc kernel: prep is for row_pack_off="
                          f"{prep.row_pack_off}, call has {want_off}")
+    if prep.src_type != source_type(params):
+        raise ValueError(f"zncc kernel: prep holds {prep.src_type} "
+                         f"sources, params ask for {source_type(params)}")
+    f32 = prep.src_type == "f32"
     T = prep.taps.shape[0]
     check_arg("zncc", "planes", planes, torch.float32, (K, Hg, W, 4), dev)
-    check_arg("zncc", "src_q", prep.src_q, torch.int32, (V, Hs, Ws), dev)
+    if f32:
+        src = prep.src_f4
+        check_arg("zncc", "src_f4", src, torch.float32, (V, Hs, Ws, 4), dev)
+        if src.data_ptr() % 16:
+            raise ValueError("zncc kernel: src_f4 must be 16-byte aligned")
+    else:
+        src = prep.src_q
+        check_arg("zncc", "src_q", src, torch.int32, (V, Hs, Ws), dev)
     check_arg("zncc", "consts", prep.consts, torch.float32,
               (_HEADER + _VIEW_STRIDE * V,), dev)
     check_arg("zncc", "taps", prep.taps, torch.float32, (T, 2), dev)
@@ -222,7 +281,7 @@ def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _lib().acmmp_zncc_launch(
-            K, planes.data_ptr(), prep.src_q.data_ptr(),
+            K, int(f32), planes.data_ptr(), src.data_ptr(),
             prep.w_taps.data_ptr(), prep.wr_taps.data_ptr(),
             prep.refsums.data_ptr(), prep.consts.data_ptr(),
             prep.taps.data_ptr(), out.data_ptr(), V, nv, Hg, W, Hs, Ws, T, oy,
@@ -230,5 +289,5 @@ def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
             float(params.min_var), stream)
     if rc != 0:
         raise RuntimeError(f"zncc kernel launch failed: cudaError {rc}")
-    launches[K] += 1
+    (launches_f32 if f32 else launches)[K] += 1
     return out[0] if squeeze else out

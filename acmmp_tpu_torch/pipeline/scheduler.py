@@ -16,7 +16,7 @@ are resumable at stage granularity and cross-checkable against the
 reference binaries and the JAX package. Every solve and JBU runs on one
 device (CUDA unless told otherwise); images, priors and checkpoints stay
 on the host between stages. The batched executor (``view_batch > 1``) and
-the mesh paths are not ported (ROADMAP Queue 1 item 12)."""
+the mesh paths are not ported (ROADMAP Queue 1 items 3 and 6)."""
 
 from __future__ import annotations
 
@@ -402,7 +402,7 @@ def run_pipeline(dense_folder: str, cfg: PipelineConfig,
     if cfg.view_batch > 1:
         raise NotImplementedError(
             "view_batch > 1 (the batched executor) is not ported yet: "
-            "ROADMAP Queue 1 item 12")
+            "ROADMAP Queue 1 items 3 and 6")
     dev = runtime.resolve_device(device)
     t_start = time.time()
     n_solves = 0

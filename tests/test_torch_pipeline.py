@@ -180,5 +180,5 @@ def test_cli_friendly_errors(tmp_path, run):
     with pytest.raises(SystemExit) as e:
         main(["reconstruct", run[0], "--mesh"])
     assert e.value.code == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 items 3 and 6"):
         main(["reconstruct", run[0], "--view_batch", "2", "--device", "cpu"])

@@ -260,9 +260,11 @@ def test_prepare_builds_the_words_once_per_solve():
         assert getattr(packed, name) is getattr(full, name), name
     assert torch.equal(full.src_q, cuda_ncc.pack_2x2(
         full.src_u8, vg.src_width, vg.src_height))
+    # an 8-bit prep builds no float quads
+    assert full.src_type == "u8" and full.src_f4 is None
     alone = cuda_ncc.prepare(inp.ref_img, inp.src_imgs, vg, params, 1)
     for a, b in zip(packed, alone):
-        assert (a == b if isinstance(a, int) else torch.equal(a, b))
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b
     T = len(params.tap_offsets) ** 2
     H, W = inp.ref_img.shape
     assert tuple(packed.w_taps.shape) == (T, H // 2, W)
