@@ -6,9 +6,10 @@ and ``fuse`` subcommands of ``acmmp_tpu/cli.py``:
 
     python -m acmmp_tpu_torch.cli reconstruct <dense_folder> [--device cpu]
 
-Both run on CUDA unless ``--device`` says otherwise. The other
-subcommands of the JAX package, ``--mesh`` and ``--view_batch > 1`` are
-not ported yet (ROADMAP Queue 1 items 4 and 6)."""
+Both run on CUDA unless ``--device`` says otherwise. ``--view_batch N``
+solves N reference views per launch stream (pipeline/batched.py). The
+other subcommands of the JAX package and ``--mesh`` are not ported yet
+(ROADMAP Queue 1 items 4 and 6)."""
 
 from __future__ import annotations
 
@@ -90,8 +91,8 @@ def main(argv=None):
                     help="skip the planar-prior second solve for views "
                          "larger than this many pixels (0 = no bound)")
     pr.add_argument("--view_batch", type=int, default=1,
-                    help="reference views solved per dispatch; only 1 is "
-                         "ported")
+                    help="reference views solved per launch stream "
+                         "(the batched executor)")
     pr.add_argument("--debug_images", action="store_true",
                     help="write approved_pixels_cam_N.png and "
                          "triangulation.png debug artifacts")

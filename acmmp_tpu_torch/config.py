@@ -193,9 +193,10 @@ class PipelineConfig:
     # round image dims up to multiples of (pad_h, pad_w) to bound recompiles
     pad_h: int = 8
     pad_w: int = 128
-    # solve this many reference views per dispatch (batch-mapped stages);
-    # >1 enables the JAX package's batched executor, not ported yet: the
-    # port's run_pipeline raises for it (ROADMAP Queue 1 items 3 and 6)
+    # solve this many reference views per launch stream: the batched
+    # executor (pipeline/batched.py) stacks each group of same-shape views
+    # on a leading batch axis through every solver op and kernel; the
+    # mesh executor is not ported (ROADMAP Queue 1 item 6)
     view_batch: int = 1
     # stage-level resume: skip a (view, scale, mode) solve whose pass
     # marker (.pass_NNN.json next to its .dmb outputs) records a completed

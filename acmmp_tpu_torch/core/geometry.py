@@ -10,6 +10,12 @@ Conventions are the JAX package's (the reference's cam.txt contract):
 
 The 3x3 products are written out as broadcast multiply-and-sum so they
 run in full float32 on every device (no TF32, no library GEMM choice).
+
+A batched solve stacks B reference cameras ([B] fields) and B stacks of
+source cameras ([B, V]); ``insert_dims`` gives them the singleton axes
+that let every function here broadcast them over [B, H, W] grids (and
+[K, B, H, W] hypothesis stacks) as a scalar camera broadcasts over
+[H, W].
 """
 
 from __future__ import annotations
@@ -47,6 +53,29 @@ class Camera:
 
 def stack_cameras(cams) -> Camera:
     return Camera(*(torch.stack([getattr(c, f.name) for c in cams])
+                    for f in dataclasses.fields(Camera)))
+
+
+def index_camera(cam: Camera, i) -> Camera:
+    """Camera `i` of a stacked camera (every field indexed on axis 0)."""
+    return Camera(*(getattr(cam, f.name)[i]
+                    for f in dataclasses.fields(Camera)))
+
+
+_TRAILING = {"K": 2, "R": 2, "t": 1}
+
+
+def insert_dims(cam: Camera, at: int, n: int) -> Camera:
+    """`cam` with `n` singleton axes inserted at position `at` of its
+    leading (batch) axes: a [B] camera with at=1, n=2 broadcasts over
+    [B, H, W] grids; [B, V] source cameras with at=1, n=2 over
+    [B, H, W, V] fields."""
+    def one(t: torch.Tensor, trailing: int) -> torch.Tensor:
+        lead = t.shape[:t.ndim - trailing]
+        return t.reshape(lead[:at] + (1,) * n + lead[at:]
+                         + t.shape[t.ndim - trailing:])
+
+    return Camera(*(one(getattr(cam, f.name), _TRAILING.get(f.name, 0))
                     for f in dataclasses.fields(Camera)))
 
 

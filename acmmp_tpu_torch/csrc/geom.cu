@@ -82,6 +82,17 @@
 // against 0.13 ms for its FP32 operations alone. chip_smoke.py prints
 // the registers and blocks per SM (phase 6) and reads the view loop's
 // reciprocals and stores from the SASS (phase 9d).
+//
+// One launch of the redesign serves a batch of B reference views (the
+// batched executor, acmmp_tpu_torch/pipeline/batched.py): blockIdx.y is
+// the view b of the batch, whose block stages b's own cameras into shared
+// memory and reads b's depth maps and true source count (ViewCounts, in
+// the kernel's parameters, as in zncc.cu). Planes and costs are
+// candidate-major, [K, B, npix] and [K, B, npix, V], the solver's layout.
+// A launch of one view (B = 1) runs the instantiation without a batch
+// (kBatch false, b = 0), whose code is the single-view kernel's; a view's
+// costs are bitwise those of a launch of that view alone. The first
+// design stays single-view.
 
 #include <cuda_runtime.h>
 
@@ -96,6 +107,11 @@ constexpr int kBlock = 128;
 // ptxas keeps the redesign under 64 registers: at least 8 blocks (32
 // warps) per SM
 constexpr int kMinBlocks = 8;
+// the largest batch of one launch, and its views' true source counts
+constexpr int kMaxBatch = 256;
+struct ViewCounts {
+  int n[kMaxBatch];
+};
 
 // sum_j m[j] * v[j], j = 0, 1, 2 in order (geometry.matvec's row sum)
 __device__ __forceinline__ float dot3(float m0, float m1, float m2, float v0,
@@ -168,21 +184,26 @@ __device__ __forceinline__ float view_cost(const float* ref, const float* cv,
   return sd <= 0.0f ? max_cost : err;
 }
 
-// kVec4: V is a multiple of 4 and each thread's costs go in 16-byte stores
-template <bool kVec4>
+// kVec4: V is a multiple of 4 and each thread's costs go in 16-byte stores;
+// kBatch: blockIdx.y is the view of a batch (else B = 1)
+template <bool kVec4, bool kBatch>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) geom_kernel(
-    const float4* __restrict__ planes,  // [K, npix] (nx, ny, nz, w)
-    const float* __restrict__ depths,   // [V, Hs, Ws]
-    const float* __restrict__ consts,   // [kHeader + kViewStride * V]
-    float* __restrict__ out,            // [K, npix, V]
-    int K, int V, int n_views, int Hg, int W, int Hs, int Ws,
-    int row_pack_off, float max_cost) {
+    const float4* __restrict__ planes,  // [K, B, npix] (nx, ny, nz, w)
+    const float* __restrict__ depths,   // [B, V, Hs, Ws]
+    const float* __restrict__ consts,   // [B, kHeader + kViewStride * V]
+    const ViewCounts n_views,           // [B]
+    float* __restrict__ out,            // [K, B, npix, V]
+    int K, int B, int V, int Hg, int W, int Hs, int Ws, int row_pack_off,
+    float max_cost) {
   extern __shared__ float s_consts[];   // consts, staged once per block
+  // view b of the batch: its cameras, depth maps and source count
+  const int b = kBatch ? static_cast<int>(blockIdx.y) : 0;
   const int n_consts = kHeader + kViewStride * V;
   for (int q = threadIdx.x; q < n_consts; q += kBlock)
-    s_consts[q] = __ldg(consts + q);
+    s_consts[q] = __ldg(consts + b * n_consts + q);
   __syncthreads();
 
+  const int n_views_b = n_views.n[b];
   const int npix = Hg * W;
   // the hypothesis is the fastest grid index: the K blocks of a pixel
   // chunk run together on the same depth-map band
@@ -202,7 +223,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) geom_kernel(
   const float fx = ref[0], fy = ref[4];
   const float xmc = __fsub_rn(xx, ref[2]);
   const float ymc_r = __fmul_rn(__fdiv_rn(fx, fy), __fsub_rn(yy, ref[5]));
-  const float4 pl = __ldg(planes + (size_t)k * npix + p);
+  const int kb = kBatch ? k * B + b : k;   // the row of (k, b)
+  const float4 pl = __ldg(planes + (size_t)kb * npix + p);
   const float denom =
       __fadd_rn(__fadd_rn(__fmul_rn(xmc, pl.x), __fmul_rn(ymc_r, pl.y)),
                 __fmul_rn(fx, pl.z));
@@ -211,8 +233,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) geom_kernel(
   world_point(ref, xx, yy, d, xw);
 
   // the (k, v) part: V costs, contiguous
-  float* o = out + ((size_t)k * npix + p) * V;
+  float* o = out + ((size_t)kb * npix + p) * V;
   const size_t map = (size_t)Hs * Ws;
+  const float* dmaps = depths + (size_t)b * V * map;
   if constexpr (kVec4) {
 #pragma unroll 1
     for (int v0 = 0; v0 < V; v0 += 4) {
@@ -220,9 +243,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) geom_kernel(
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int v = v0 + q;
-        c[q] = v < n_views
+        c[q] = v < n_views_b
                    ? view_cost(ref, s_consts + kHeader + v * kViewStride,
-                               depths + v * map, Ws, xw, xx, yy, max_cost)
+                               dmaps + v * map, Ws, xw, xx, yy, max_cost)
                    : max_cost;
       }
       *reinterpret_cast<float4*>(o + v0) = make_float4(c[0], c[1], c[2], c[3]);
@@ -230,9 +253,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) geom_kernel(
   } else {
 #pragma unroll 1
     for (int v = 0; v < V; ++v)
-      o[v] = v < n_views
+      o[v] = v < n_views_b
                  ? view_cost(ref, s_consts + kHeader + v * kViewStride,
-                             depths + v * map, Ws, xw, xx, yy, max_cost)
+                             dmaps + v * map, Ws, xw, xx, yy, max_cost)
                  : max_cost;
   }
 }
@@ -241,20 +264,22 @@ size_t smem_bytes(int V) {
   return sizeof(float) * (size_t)(kHeader + kViewStride * V);
 }
 
-// the redesign's instantiation for V views
+// the redesign's instantiation for V views and a batch of B
 template <typename F>
-cudaError_t by_vec(int V, F f) {
-  return V % 4 == 0 ? f(geom_kernel<true>) : f(geom_kernel<false>);
+cudaError_t by_shape(int V, int B, F f) {
+  if (V % 4 == 0)
+    return B > 1 ? f(geom_kernel<true, true>) : f(geom_kernel<true, false>);
+  return B > 1 ? f(geom_kernel<false, true>) : f(geom_kernel<false, false>);
 }
 
-cudaError_t launch(int K, const void* planes, const void* depths,
-                   const void* consts, void* out, int V, int n_views, int Hg,
-                   int W, int Hs, int Ws, int row_pack_off, float max_cost,
-                   cudaStream_t stream) {
+cudaError_t launch(int K, int B, const void* planes, const void* depths,
+                   const void* consts, const ViewCounts& n_views, void* out,
+                   int V, int Hg, int W, int Hs, int Ws, int row_pack_off,
+                   float max_cost, cudaStream_t stream) {
   const int npix = Hg * W;
   const size_t smem = smem_bytes(V);
-  const dim3 grid(((npix + kBlock - 1) / kBlock) * K);
-  return by_vec(V, [&](auto kernel) {
+  const dim3 grid(((npix + kBlock - 1) / kBlock) * K, B);
+  return by_shape(V, B, [&](auto kernel) {
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -263,8 +288,9 @@ cudaError_t launch(int K, const void* planes, const void* depths,
     }
     kernel<<<grid, kBlock, smem, stream>>>(
         static_cast<const float4*>(planes), static_cast<const float*>(depths),
-        static_cast<const float*>(consts), static_cast<float*>(out), K, V,
-        n_views, Hg, W, Hs, Ws, row_pack_off, max_cost);
+        static_cast<const float*>(consts), n_views,
+        static_cast<float*>(out), K, B, V, Hg, W, Hs, Ws, row_pack_off,
+        max_cost);
     return cudaGetLastError();
   });
 }
@@ -401,16 +427,21 @@ cudaError_t launch_first(const void* planes, const void* depths,
 
 // Plain C entry points (loaded with ctypes). Each launch returns
 // cudaGetLastError() after it, or cudaErrorInvalidValue for an
-// unsupported K (the redesign takes any K >= 1; the first design is built
-// for the solver's 1, 5 and 8).
-extern "C" int acmmp_geom_launch(int K, const void* planes, const void* depths,
-                                 const void* consts, void* out, int V,
-                                 int n_views, int Hg, int W, int Hs, int Ws,
+// unsupported K (the redesign takes any K >= 1 and a batch of 1 to
+// kMaxBatch views, n_views pointing at their B source counts on the host;
+// the first design is single-view, built for the solver's 1, 5 and 8).
+extern "C" int acmmp_geom_launch(int K, int B, const void* planes,
+                                 const void* depths, const void* consts,
+                                 const int* n_views, void* out, int V,
+                                 int Hg, int W, int Hs, int Ws,
                                  int row_pack_off, float max_cost,
                                  void* stream) {
-  if (K < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch(K, planes, depths, consts, out, V, n_views,
-                                 Hg, W, Hs, Ws, row_pack_off, max_cost,
+  if (K < 1 || V < 1 || B < 1 || B > kMaxBatch)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ViewCounts counts = {};
+  for (int b = 0; b < B; ++b) counts.n[b] = n_views[b];
+  return static_cast<int>(launch(K, B, planes, depths, consts, counts, out,
+                                 V, Hg, W, Hs, Ws, row_pack_off, max_cost,
                                  static_cast<cudaStream_t>(stream)));
 }
 
@@ -437,14 +468,16 @@ extern "C" int acmmp_geom_first_launch(int K, const void* planes,
   }
 }
 
-// The blocks of the redesign an SM holds for V views, by the runtime's
+// The blocks of the redesign an SM holds for V views, in its
+// instantiation for a batch (batched) or one view, by the runtime's
 // occupancy calculator, into *blocks, and the threads of a block into
 // *threads.
-extern "C" int acmmp_geom_occupancy(int V, int* blocks, int* threads) {
+extern "C" int acmmp_geom_occupancy(int V, int batched, int* blocks,
+                                    int* threads) {
   if (V < 1) return static_cast<int>(cudaErrorInvalidValue);
   *threads = kBlock;
   const size_t smem = smem_bytes(V);
-  return static_cast<int>(by_vec(V, [&](auto kernel) {
+  return static_cast<int>(by_shape(V, batched ? 2 : 1, [&](auto kernel) {
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -77,6 +77,24 @@
 // code: a byte becomes f32 exactly, so on u8-valued floats the float4
 // instantiation gives the uint32_t one's bits.
 //
+// One launch serves a batch of B reference views (the batched executor,
+// acmmp_tpu_torch/pipeline/batched.py): blockIdx.y is the view b of the
+// batch. Each view has its own sources, reference-side weights and sums,
+// constants and true source count, so the views of a batch may pad
+// different slots; the hypothesis stacks and costs are candidate-major,
+// planes [K, B, npix] and costs [K, B, npix, V], the solver's layout. The
+// B source counts ride in the kernel's parameters (ViewCounts, read from
+// the constant bank), so a padded slot's block exits before any load.
+// Every offset of view b is a row index built from the block-uniform b
+// (with per-thread 64-bit offsets, ptxas recomputed the pixel index
+// inside the K = 1 tap loop: 88 SASS instructions a tap against 78), so
+// the tap loop keeps its instructions, and a view's costs are bitwise
+// those of a launch of that view alone. A launch of one view (B = 1)
+// runs the instantiation without a batch (kBatch false, b = 0), whose
+// code is the single-view kernel's: with the batch index the K = 8
+// launch took 1.5% longer, and chip_smoke.py phase 6, which times it in
+// turns against the first design, allows 1% over the recorded ratio.
+//
 // The moments are accumulated over centred values: reference taps minus
 // the reference pixel's own value (the wrapper does that side), source
 // samples minus the source sample at the centre warp. The ZNCC is
@@ -108,6 +126,12 @@ constexpr int kTwo23Bits = 0x4B000000;
 // __byte_perm selector for byte n of x under the three high bytes of
 // kTwo23Bits (0x00, 0x00, 0x4B): kByteSelect + n gives 0x4B0000bb
 constexpr unsigned kByteSelect = 0x7540;
+
+// the largest batch of one launch, and its views' true source counts
+constexpr int kMaxBatch = 256;
+struct ViewCounts {
+  int n[kMaxBatch];
+};
 
 // A block: K hypothesis rows of kPix pixels each (256 threads at K = 1, 2
 // and 8; 192 at K = 3). kMinBlocks asks ptxas for at most 64 registers.
@@ -228,17 +252,18 @@ __device__ __forceinline__ float sample(const Src* __restrict__ src,
   return __fmaf_rn(fy, bot, __fmul_rn(__fsub_rn(1.0f, fy), top));
 }
 
-template <int K, typename Src>
+template <int K, typename Src, bool kBatch>
 __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
-    zncc_kernel(const float4* __restrict__ planes,   // [K, npix] (n, w)
-                const Src* __restrict__ src,         // [V, Hs, Ws] 2x2 each
-                const float* __restrict__ w_taps,    // [T, npix]
-                const float* __restrict__ wr_taps,   // [T, npix]
-                const float* __restrict__ refsums,   // [3, npix]
-                const float* __restrict__ consts,    // [kHeader + 16 V]
+    zncc_kernel(const float4* __restrict__ planes,   // [K, B, npix] (n, w)
+                const Src* __restrict__ src,   // [B, V, Hs, Ws] 2x2 each
+                const float* __restrict__ w_taps,    // [B, T, npix]
+                const float* __restrict__ wr_taps,   // [B, T, npix]
+                const float* __restrict__ refsums,   // [B, 3, npix]
+                const float* __restrict__ consts,    // [B, kHeader + 16 V]
                 const float2* __restrict__ taps,     // [T] (di, dj)
-                float* __restrict__ out,             // [K, npix, V]
-                int V, int n_views, int Hg, int W, int Hs, int Ws, int T,
+                const ViewCounts n_views,            // [B]
+                float* __restrict__ out,             // [K, B, npix, V]
+                int B, int V, int Hg, int W, int Hs, int Ws, int T,
                 float oy, float ox, int row_pack_off, float cost_max,
                 float min_var) {
   using S = Shape<K>;
@@ -251,10 +276,18 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
   const int chunk = blockIdx.x / V;
   const int v = blockIdx.x - chunk * V;
   const int p = chunk * S::kPix + lane;
-  if (v >= n_views) {
-    if (p < npix) out[((size_t)k * npix + p) * V + v] = cost_max;
+  // view b of the batch (0 in a launch of one view, B = 1): row
+  // kb = k * B + b of the hypotheses and costs, rows b * T + t of the tap
+  // weights, b * 3 + r of the reference sums, and b's block of the
+  // constants and sources
+  const int b = kBatch ? static_cast<int>(blockIdx.y) : 0;
+  const int kb = kBatch ? k * B + b : k;
+  if (v >= n_views.n[b]) {
+    if (p < npix) out[((size_t)kb * npix + p) * V + v] = cost_max;
     return;
   }
+  const int tb = b * T;
+  const float* cb = consts + b * (kHeader + kViewStride * V);
   // the ragged block's extra threads work on the last pixel and store
   // nothing; they take part in the staging and the barrier
   const int pc = min(p, npix - 1);
@@ -266,8 +299,8 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
   if constexpr (S::kStage) {
     for (int t = k; t < T; t += K) {
       float2* dst = s_w + t * S::kPix + lane;
-      cp_async(&dst->x, w_taps + (size_t)t * npix + pc, 4);
-      cp_async(&dst->y, wr_taps + (size_t)t * npix + pc, 4);
+      cp_async(&dst->x, w_taps + (size_t)(tb + t) * npix + pc, 4);
+      cp_async(&dst->y, wr_taps + (size_t)(tb + t) * npix + pc, 4);
     }
   }
   cp_async_commit();
@@ -279,7 +312,7 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
   const float yy = __fadd_rn((float)rr, oy);
   const float xx = __fadd_rn((float)j, ox);
 
-  const float* c = consts + kHeader + v * kViewStride;
+  const float* c = cb + kHeader + v * kViewStride;
   const float a00 = __ldg(c + 0), a01 = __ldg(c + 1), a02 = __ldg(c + 2);
   const float a10 = __ldg(c + 3), a11 = __ldg(c + 4), a12 = __ldg(c + 5);
   const float a20 = __ldg(c + 6), a21 = __ldg(c + 7), a22 = __ldg(c + 8);
@@ -292,12 +325,13 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
   const float aq1 = __fadd_rn(__fmaf_rn(a11, yy, __fmul_rn(a10, xx)), a12);
   const float aq2 = __fadd_rn(__fmaf_rn(a21, yy, __fmul_rn(a20, xx)), a22);
 
-  const unsigned voff = (unsigned)(v * Hs * Ws);
+  // view (b, v)'s 2x2 elements; B * V * Hs * Ws < 2^31 (the wrapper)
+  const unsigned voff = (unsigned)((b * V + v) * Hs * Ws);
   float kr[9];
 #pragma unroll
-  for (int q = 0; q < 9; ++q) kr[q] = __ldg(consts + q);
+  for (int q = 0; q < 9; ++q) kr[q] = __ldg(cb + q);
 
-  const float4 pl = __ldg(planes + (size_t)k * npix + pc);
+  const float4 pl = __ldg(planes + (size_t)kb * npix + pc);
   // m = K_r^{-T} n, 1/w
   const float m0 = __fmaf_rn(kr[2], pl.z,
                              __fmaf_rn(kr[1], pl.y, __fmul_rn(kr[0], pl.x)));
@@ -341,8 +375,8 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
       wt = ww.x;
       wrt = ww.y;
     } else {
-      wt = __ldg(w_taps + (size_t)t * npix + p);
-      wrt = __ldg(wr_taps + (size_t)t * npix + p);
+      wt = __ldg(w_taps + (size_t)(tb + t) * npix + p);
+      wrt = __ldg(wr_taps + (size_t)(tb + t) * npix + p);
     }
     const float px = __fmaf_rn(d.y, h.tx, __fmaf_rn(d.x, h.ux, h.px));
     const float py = __fmaf_rn(d.y, h.ty, __fmaf_rn(d.x, h.uy, h.py));
@@ -355,9 +389,9 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
     s_rs = __fmaf_rn(wrt, val, s_rs);
   }
 
-  const float sum_w = __ldg(refsums + p);
-  const float sum_ref = __ldg(refsums + (size_t)npix + p);
-  const float sum_ref2 = __ldg(refsums + 2 * (size_t)npix + p);
+  const float sum_w = __ldg(refsums + (size_t)(3 * b) * npix + p);
+  const float sum_ref = __ldg(refsums + (size_t)(3 * b + 1) * npix + p);
+  const float sum_ref2 = __ldg(refsums + (size_t)(3 * b + 2) * npix + p);
   const float inv_sum_w = __frcp_rn(sum_w);
   const float mean_ref = __fmul_rn(sum_ref, inv_sum_w);
   const float var_ref = __fsub_rn(__fmul_rn(sum_ref2, inv_sum_w),
@@ -371,48 +405,53 @@ __global__ void __launch_bounds__(Shape<K>::kThreads, Shape<K>::kMinBlocks)
   const float ncc =
       fminf(fmaxf(__fsub_rn(1.0f, __fdiv_rn(covar, denom)), 0.0f), cost_max);
   const bool degenerate = (var_ref < min_var) || (var_src < min_var);
-  out[((size_t)k * npix + p) * V + v] =
+  out[((size_t)kb * npix + p) * V + v] =
       (degenerate || !in_bounds) ? cost_max : ncc;
 }
 
 template <int K, typename Src>
 cudaError_t launch(const void* planes, const void* src, const void* w_taps,
                    const void* wr_taps, const void* refsums,
-                   const void* consts, const void* taps, void* out, int V,
-                   int n_views, int Hg, int W, int Hs, int Ws, int T,
-                   float oy, float ox, int row_pack_off, float cost_max,
-                   float min_var, cudaStream_t stream) {
+                   const void* consts, const void* taps,
+                   const ViewCounts& n_views, void* out, int B, int V, int Hg,
+                   int W, int Hs, int Ws, int T, float oy, float ox,
+                   int row_pack_off, float cost_max, float min_var,
+                   cudaStream_t stream) {
   using S = Shape<K>;
+  const auto kernel = B > 1 ? zncc_kernel<K, Src, true>
+                            : zncc_kernel<K, Src, false>;
   const size_t smem = smem_bytes<K>(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        zncc_kernel<K, Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const int npix = Hg * W;
-  const dim3 grid(((npix + S::kPix - 1) / S::kPix) * V);
-  zncc_kernel<K, Src><<<grid, S::kThreads, smem, stream>>>(
+  const dim3 grid(((npix + S::kPix - 1) / S::kPix) * V, B);
+  kernel<<<grid, S::kThreads, smem, stream>>>(
       static_cast<const float4*>(planes), static_cast<const Src*>(src),
       static_cast<const float*>(w_taps), static_cast<const float*>(wr_taps),
       static_cast<const float*>(refsums), static_cast<const float*>(consts),
-      static_cast<const float2*>(taps), static_cast<float*>(out), V, n_views,
-      Hg, W, Hs, Ws, T, oy, ox, row_pack_off, cost_max, min_var);
+      static_cast<const float2*>(taps), n_views, static_cast<float*>(out), B,
+      V, Hg, W, Hs, Ws, T, oy, ox, row_pack_off, cost_max, min_var);
   return cudaGetLastError();
 }
 
 template <int K, typename Src>
-cudaError_t occupancy(int T, int* blocks, int* threads) {
+cudaError_t occupancy(int T, int batched, int* blocks, int* threads) {
   *threads = Shape<K>::kThreads;
+  const auto kernel = batched ? zncc_kernel<K, Src, true>
+                              : zncc_kernel<K, Src, false>;
   const size_t smem = smem_bytes<K>(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        zncc_kernel<K, Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, zncc_kernel<K, Src>, Shape<K>::kThreads, smem);
+      blocks, kernel, Shape<K>::kThreads, smem);
 }
 
 // f(Shape<K>{}, Src{}) for a supported K and source type (src_f32: 0 the
@@ -442,30 +481,35 @@ int dispatch(int K, int src_f32, F f) {
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). `src` points at the sources'
-// 2x2 words [V, Hs, Ws] (int32) when src_f32 is 0, at their 2x2 quads
-// [V, Hs, Ws, 4] (f32) when it is 1. The launch returns cudaGetLastError()
-// after it, or cudaErrorInvalidValue for an unsupported K or source type.
+// 2x2 words [B, V, Hs, Ws] (int32) when src_f32 is 0, at their 2x2 quads
+// [B, V, Hs, Ws, 4] (f32) when it is 1; `n_views` at the B views' true
+// source counts on the host. The launch returns cudaGetLastError() after
+// it, or cudaErrorInvalidValue for an unsupported K or source type or a
+// batch outside [1, kMaxBatch].
 extern "C" int acmmp_zncc_launch(
     int K, int src_f32, const void* planes, const void* src,
     const void* w_taps, const void* wr_taps, const void* refsums,
-    const void* consts, const void* taps, void* out, int V, int n_views,
-    int Hg, int W, int Hs, int Ws, int T, float oy, float ox,
+    const void* consts, const void* taps, const int* n_views, void* out,
+    int B, int V, int Hg, int W, int Hs, int Ws, int T, float oy, float ox,
     int row_pack_off, float cost_max, float min_var, void* stream) {
+  if (B < 1 || B > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
+  ViewCounts counts = {};
+  for (int b = 0; b < B; ++b) counts.n[b] = n_views[b];
   return dispatch(K, src_f32, [&](auto shape, auto src_type) {
     return launch<decltype(shape)::kK, decltype(src_type)>(
-        planes, src, w_taps, wr_taps, refsums, consts, taps, out, V, n_views,
-        Hg, W, Hs, Ws, T, oy, ox, row_pack_off, cost_max, min_var,
+        planes, src, w_taps, wr_taps, refsums, consts, taps, counts, out, B,
+        V, Hg, W, Hs, Ws, T, oy, ox, row_pack_off, cost_max, min_var,
         static_cast<cudaStream_t>(stream));
   });
 }
 
-// The blocks of zncc_kernel<K, Src> an SM holds with T taps, by the
-// runtime's occupancy calculator, into *blocks, and the threads of a block
-// into *threads.
-extern "C" int acmmp_zncc_occupancy(int K, int src_f32, int T, int* blocks,
-                                    int* threads) {
+// The blocks of zncc_kernel<K, Src, batched> an SM holds with T taps, by
+// the runtime's occupancy calculator, into *blocks, and the threads of a
+// block into *threads.
+extern "C" int acmmp_zncc_occupancy(int K, int src_f32, int T, int batched,
+                                    int* blocks, int* threads) {
   return dispatch(K, src_f32, [&](auto shape, auto src_type) {
-    return occupancy<decltype(shape)::kK, decltype(src_type)>(T, blocks,
-                                                            threads);
+    return occupancy<decltype(shape)::kK, decltype(src_type)>(
+        T, batched, blocks, threads);
   });
 }

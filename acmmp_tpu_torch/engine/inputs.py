@@ -6,11 +6,13 @@ shapes, view-axis padding and mask, relaxed depth range
 ``solver_inputs_from_numpy`` carries a problem across from the JAX
 package: its SolverInputs as numpy arrays plus a JAX key's words become
 the port's inputs and key, so both packages solve the same problem with
-the same random stream."""
+the same random stream; ``solver_inputs_batch_from_numpy`` does so for a
+batch of views (the inputs and keys of the JAX package's batched
+executor)."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +23,7 @@ from acmmp_tpu_torch.core.geometry import Camera, stack_cameras
 from acmmp_tpu_torch.engine.patchmatch import SolverInputs
 from acmmp_tpu_torch.io.dense_folder import NumpyCamera
 from acmmp_tpu_torch.ops import keys
+from acmmp_tpu_torch.parallel.sharding import stack_solver_inputs
 
 
 def round_up(v: int, m: int) -> int:
@@ -166,3 +169,16 @@ def solver_inputs_from_numpy(arrays, key_data, device=None):
         pre_costs=opt(arrays.pre_costs),
     )
     return inputs, keys.from_key_data(key_data)
+
+
+def solver_inputs_batch_from_numpy(
+        arrays_list: Sequence, key_data_list: Sequence,
+        device=None) -> Tuple[SolverInputs, keys.KeyBatch]:
+    """(batched port SolverInputs, port KeyBatch) of B views: each view's
+    JAX SolverInputs as numpy arrays and its key's words, carried across
+    by `solver_inputs_from_numpy` and stacked on a leading [B]
+    (parallel/sharding.stack_solver_inputs)."""
+    pairs = [solver_inputs_from_numpy(a, k, device=device)
+             for a, k in zip(arrays_list, key_data_list, strict=True)]
+    return (stack_solver_inputs([p[0] for p in pairs]),
+            keys.stack([p[1] for p in pairs]))

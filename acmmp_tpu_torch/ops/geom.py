@@ -15,6 +15,11 @@ last axis, and takes the Pallas kernel's rule for NaN
 (pallas_geom.py:129-130, 168): coordinates are made finite and clamped in
 float before they are truncated, and a NaN error is geom_cost_max. For
 finite coordinates that equals the oracle's truncate-then-clip.
+
+A batch of B reference views runs as one call: ref_cam [B], src_cams
+[B, V], src_depths [B, V, Hs, Ws] and candidate-major planes
+[..., B, Hg, W, 4] give [..., B, Hg, W, V], each view's costs those of
+its own call.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ def geom_consistency_cost(ref_cam: geo.Camera, src_cams: geo.Camera,
     The planes lie on the full pixel grid at origin (0, 0), or on its
     parity-packed half grid when `row_pack_off` (the host int off0) is
     given; both routes build that grid from the same two facts. `n_views`
-    (host int) is the true view count: the kernel writes geom_cost_max for
+    is the true view count (a host int; for a batch, a sequence of B host
+    ints): the kernel writes geom_cost_max for
     padded slots without reading them; the plain version reads their zero
     depth maps, which gives the same. `prep` is the kernel's per-solve
     preparation (cuda_geom.prepare)."""
@@ -64,15 +70,19 @@ def plane_grid(planes: torch.Tensor, row_pack_off=None):
 
 def _geom_plain(ref_cam, src_cams, src_depths, planes, x, y,
                 params: PatchMatchParams) -> torch.Tensor:
-    """The plain version, all V views at once on the last axis."""
+    """The plain version, all V views at once on the last axis (a batch's
+    cameras broadcast over the grid, geometry.insert_dims)."""
     max_cost = params.geom_cost_max
-    depth = geo.depth_from_plane(ref_cam, planes, x, y)        # [..., H, W]
-    Xw = geo.world_point(ref_cam, x, y, depth)                 # [..., H, W, 3]
-    uv, _ = geo.project(src_cams, Xw[..., None, :])            # [..., V, 2]
+    nb = ref_cam.t.ndim - 1                # 1 for a batch, else 0
+    ref_g = geo.insert_dims(ref_cam, nb, 2)
+    src_g = geo.insert_dims(src_cams, nb, 2)
+    depth = geo.depth_from_plane(ref_g, planes, x, y)          # [..., H, W]
+    Xw = geo.world_point(ref_g, x, y, depth)                   # [..., H, W, 3]
+    uv, _ = geo.project(src_g, Xw[..., None, :])               # [..., V, 2]
     u, v = uv[..., 0], uv[..., 1]
-    sd = _nearest_views(src_depths, u, v, src_cams.width, src_cams.height)
-    Xs = geo.world_point(src_cams, u, v, sd)                   # [..., V, 3]
-    buv, _ = geo.project(ref_cam, Xs)
+    sd = _nearest_views(src_depths, u, v, src_g.width, src_g.height)
+    Xs = geo.world_point(src_g, u, v, sd)                      # [..., V, 3]
+    buv, _ = geo.project(geo.insert_dims(ref_cam, nb, 3), Xs)
     err = torch.sqrt((x[..., None] - buv[..., 0]) ** 2
                      + (y[..., None] - buv[..., 1]) ** 2)
     err = torch.clamp(torch.nan_to_num(err, nan=max_cost), max=max_cost)
@@ -81,8 +91,12 @@ def _geom_plain(ref_cam, src_cams, src_depths, planes, x, y,
 
 def _nearest_views(src_depths, u, v, sw, sh):
     """geometry.nearest_sample per view: view j's map read at
-    (u, v)[..., j], clamped to its true extent (sw, sh)[j]."""
-    V, Hs, Ws = src_depths.shape
+    (u, v)[..., j], clamped to its true extent (sw, sh)[j]; for a batch,
+    src_depths [B, V, Hs, Ws] and (u, v) [..., B, H, W, V]."""
+    Hs, Ws = src_depths.shape[-2:]
+    lead = src_depths.shape[:-3]
     xi, yi = geo.nearest_index(src_depths, u, v, sw, sh)
-    base = torch.arange(V, device=src_depths.device) * (Hs * Ws)
+    base = (torch.arange(src_depths[..., 0, 0].numel(),
+                         device=src_depths.device)
+            * (Hs * Ws)).reshape(lead + (1, 1, src_depths.shape[-3]))
     return src_depths.reshape(-1)[base + yi * Ws + xi]

@@ -13,13 +13,22 @@ current JAX, ``jax_threefry_partitionable=True``):
   * ``fold_in(key, d) = threefry2x32(key, (0, d))`` — the threefry of the
     seed words of ``d``;
   * ``key(seed) = (seed >> 32, seed & 0xFFFFFFFF)``.
+
+``KeyBatch`` holds B keys, one per view of a batched solve; ``split`` and
+``fold_in`` take it too and give each view the words its own key would
+give (``jax.vmap(jax.random.split)``, as the JAX package's batched
+executor derives its stage keys). The words stay on the host; the pixel
+hash reads them from ``KeyBatch.words_on``, one copy to the device per
+key.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence, Union
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -31,8 +40,8 @@ def _rotl(v: np.ndarray, d: int) -> np.ndarray:
 
 def threefry2x32(k0: int, k1: int, x0, x1):
     """The 20-round threefry2x32 block cipher on uint32 arrays."""
-    ks = [np.uint32(k0), np.uint32(k1),
-          np.uint32(k0) ^ np.uint32(k1) ^ _PARITY]
+    k0, k1 = np.asarray(k0, np.uint32), np.asarray(k1, np.uint32)
+    ks = [k0, k1, k0 ^ k1 ^ _PARITY]
     x = [np.atleast_1d(np.asarray(x0, np.uint32)) + ks[0],
          np.atleast_1d(np.asarray(x1, np.uint32)) + ks[1]]
     for i in range(5):
@@ -70,17 +79,67 @@ def from_key_data(data) -> Key:
     return Key(int(d[0]), int(d[1]))
 
 
-def split(k: Key, num: int = 2):
-    """``jax.random.split(k, num)`` as a list of Keys."""
-    with np.errstate(over="ignore"):
-        b0, b1 = threefry2x32(k.k0, k.k1, np.zeros(num, np.uint32),
-                              np.arange(num, dtype=np.uint32))
+class KeyBatch:
+    """B threefry keys, one per view of a batch: their words [B, 2]
+    uint32 on the host."""
+
+    def __init__(self, words):
+        self.words = np.asarray(words, np.uint32).reshape(-1, 2)
+        self._on = {}
+
+    def __len__(self) -> int:
+        return self.words.shape[0]
+
+    def words_on(self, device):
+        """(k0, k1), each a [B, 1, 1] int64 tensor on `device`, to
+        broadcast over [B, H, W] grids; copied once per device, from
+        pinned memory without waiting on the device's queue."""
+        dev = torch.device(device)
+        if dev not in self._on:
+            w = torch.from_numpy(self.words.astype(np.int64))
+            if dev.type == "cuda":
+                w = w.pin_memory().to(dev, non_blocking=True)
+            w = w.reshape(-1, 1, 1, 2)
+            self._on[dev] = (w[..., 0], w[..., 1])
+        return self._on[dev]
+
+
+AnyKey = Union[Key, KeyBatch]
+
+
+def stack(ks: Sequence[Key]) -> KeyBatch:
+    """One KeyBatch of per-view Keys."""
+    return KeyBatch([k.data for k in ks])
+
+
+def _words(k: AnyKey):
+    if isinstance(k, KeyBatch):
+        return k.words[:, 0, None], k.words[:, 1, None]     # [B, 1]
+    return k.k0, k.k1
+
+
+def _keys(k: AnyKey, b0, b1):
+    """The n keys of threefry blocks b0, b1 ([n], or [B, n] for a
+    batch)."""
+    if isinstance(k, KeyBatch):
+        return [KeyBatch(np.stack([b0[:, i], b1[:, i]], -1))
+                for i in range(b0.shape[1])]
     return [Key(int(a), int(b)) for a, b in zip(b0, b1)]
 
 
-def fold_in(k: Key, data: int) -> Key:
-    """``jax.random.fold_in(k, data)``."""
+def split(k: AnyKey, num: int = 2):
+    """``jax.random.split(k, num)`` as a list of Keys (of KeyBatches,
+    each view's split, for a KeyBatch)."""
     with np.errstate(over="ignore"):
-        b0, b1 = threefry2x32(k.k0, k.k1, np.zeros(1, np.uint32),
+        b0, b1 = threefry2x32(*_words(k), np.zeros(num, np.uint32),
+                              np.arange(num, dtype=np.uint32))
+    return _keys(k, b0, b1)
+
+
+def fold_in(k: AnyKey, data: int) -> AnyKey:
+    """``jax.random.fold_in(k, data)`` (of each view's key, for a
+    KeyBatch)."""
+    with np.errstate(over="ignore"):
+        b0, b1 = threefry2x32(*_words(k), np.zeros(1, np.uint32),
                               np.asarray([int(data) & 0xFFFFFFFF], np.uint32))
-    return Key(int(b0[0]), int(b1[0]))
+    return _keys(k, b0, b1)[0]

@@ -6,13 +6,16 @@ a murmur3 fmix32 chain. PyTorch's uint32 arithmetic is incomplete, so the
 chain runs in int64 and keeps the low 32 bits after every multiply and
 add; multiplies are split into 16-bit halves so no int64 product
 overflows. Coordinates convert as ``astype(int32).astype(uint32)`` does
-(truncation toward zero, negatives wrap)."""
+(truncation toward zero, negatives wrap).
+
+A ``KeyBatch`` of B keys draws a [B, *grid] field, each view the field of
+its own key."""
 
 from __future__ import annotations
 
 import torch
 
-from acmmp_tpu_torch.ops.keys import Key
+from acmmp_tpu_torch.ops.keys import AnyKey, KeyBatch
 
 _M32 = 0xFFFFFFFF
 _C1 = 0x85EBCA6B
@@ -41,26 +44,30 @@ def _u32(coord) -> torch.Tensor:
     return c.to(torch.int32).to(torch.int64) & _M32
 
 
-def bits(key: Key, y, x, salt: int) -> torch.Tensor:
+def bits(key: AnyKey, y, x, salt: int) -> torch.Tensor:
     """Hash per pixel as int64 in [0, 2^32); y/x are (possibly float)
-    global coordinate grids."""
+    global coordinate grids ([B, *grid] for a KeyBatch)."""
     yi, xi = _u32(y), _u32(x)
-    h = _fmix((_mul32(xi, _GOLD) + key.k0) & _M32)
-    h = _fmix(h ^ ((_mul32(yi, _C1) + key.k1) & _M32))
+    if isinstance(key, KeyBatch):
+        k0, k1 = key.words_on(xi.device)
+    else:
+        k0, k1 = key.k0, key.k1
+    h = _fmix((_mul32(xi, _GOLD) + k0) & _M32)
+    h = _fmix(h ^ ((_mul32(yi, _C1) + k1) & _M32))
     return _fmix(h ^ ((salt * _GOLD) & _M32))
 
 
-def uniform(key: Key, y, x, salt: int) -> torch.Tensor:
+def uniform(key: AnyKey, y, x, salt: int) -> torch.Tensor:
     """float32 U[0, 1) per pixel (24-bit mantissa resolution)."""
     return (bits(key, y, x, salt) >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def uniform_n(key: Key, y, x, salt: int, n: int) -> torch.Tensor:
+def uniform_n(key: AnyKey, y, x, salt: int, n: int) -> torch.Tensor:
     """[n, *grid] independent U[0, 1) fields (salt+i per sample)."""
     return torch.stack([uniform(key, y, x, salt + i) for i in range(n)])
 
 
-def sphere_direction(key: Key, y, x, salt: int) -> torch.Tensor:
+def sphere_direction(key: AnyKey, y, x, salt: int) -> torch.Tensor:
     """[..., 3] uniform on the unit sphere: z ~ U(-1,1), phi ~ U(0,2pi)
     (GenerateRandomNormal's law, ACMMP.cu:170-196)."""
     z = uniform(key, y, x, salt) * 2.0 - 1.0

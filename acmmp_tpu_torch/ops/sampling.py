@@ -12,6 +12,8 @@ ops/pixel_rng.py, so the same key gives the same field in any layout
     (DEVIATIONS.md #18);
   * perturbed normals: three U(-p/2, p/2) Euler angles, keeping the
     original when the result faces away (ACMMP.cu:198-233).
+A ``KeyBatch`` with a camera of [B, 1, 1] fields (geometry.insert_dims)
+and depth ranges of [B, 1, 1] draws every view's field at once.
 """
 
 from __future__ import annotations
@@ -34,17 +36,17 @@ def _unit(v: torch.Tensor) -> torch.Tensor:
                            min=1e-12)
 
 
-def random_unit_normal(key: keys.Key, cam: geo.Camera, x, y, depth,
+def random_unit_normal(key: keys.AnyKey, cam: geo.Camera, x, y, depth,
                        min_cos: float = 0.0) -> torch.Tensor:
     """Random normals facing the camera; shapes follow x/y."""
     if not min_cos:
         n = prng.sphere_direction(key, y, x, 0)
         return geo.face_camera(cam, x, y, depth, n)
     c = float(min_cos)
-    shape = torch.broadcast_shapes(x.shape, y.shape)
     a = -geo.view_direction(cam, x, y, depth)          # cap axis (unit)
     # uniform on the cap: cos(theta) ~ U(c, 1), phi ~ U(0, 2pi)
-    ct = (c + prng.uniform(key, y, x, 0) * (1.0 - c)).expand(shape)
+    ct = c + prng.uniform(key, y, x, 0) * (1.0 - c)
+    ct = ct.expand(torch.broadcast_shapes(ct.shape, a.shape[:-1]))
     st = torch.sqrt(torch.clamp(1.0 - ct * ct, min=0.0))
     phi = prng.uniform(key, y, x, 1) * (2.0 * math.pi)
     # orthonormal basis perpendicular to a (guard the degenerate helper)
@@ -59,7 +61,7 @@ def random_unit_normal(key: keys.Key, cam: geo.Camera, x, y, depth,
     return _unit(n)
 
 
-def random_depth(key: keys.Key, depth_min, depth_max, y, x,
+def random_depth(key: keys.AnyKey, depth_min, depth_max, y, x,
                  tile_window: float = 0.0) -> torch.Tensor:
     """Per-pixel uniform depth draw (global-coordinate keyed); with
     ``tile_window = f`` each (16, 128) global tile draws inside its own
@@ -74,8 +76,8 @@ def random_depth(key: keys.Key, depth_min, depth_max, y, x,
     return u * (depth_max - depth_min) + depth_min
 
 
-def random_plane(key: keys.Key, cam: geo.Camera, x, y, depth_min, depth_max,
-                 tile_window: float = 0.0,
+def random_plane(key: keys.AnyKey, cam: geo.Camera, x, y, depth_min,
+                 depth_max, tile_window: float = 0.0,
                  min_cos: float = 0.0) -> torch.Tensor:
     """GenerateRandomPlaneHypothesis (ACMMP.cu:235-241)."""
     kd, kn = keys.split(key)
@@ -96,7 +98,7 @@ def _euler_rotation(a1, a2, a3) -> torch.Tensor:
     return r.reshape(r.shape[:-1] + (3, 3))
 
 
-def perturbed_normal(key: keys.Key, cam: geo.Camera, x, y, normal,
+def perturbed_normal(key: keys.AnyKey, cam: geo.Camera, x, y, normal,
                      perturbation) -> torch.Tensor:
     """Rotate `normal` by three small random Euler angles; keep the original
     where the perturbed normal faces away from the camera."""

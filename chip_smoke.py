@@ -23,6 +23,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      csrc/ablate.cu `f32take`), the 96x64 relief solve at
      tests/test_relief.py's bars, and a 320x240 solve, kernel against
      plain version, at phase 4's bar;
+  3f. (run after 3c) the batched launches, one launch for B = 3
+     reference views (view 1 with a padded source slot) at 320x240 / 4
+     sources and 1600x1184 / 8 sources: zncc.cu K=1 on the full grid and
+     K=8/3/2 packed at both parities, 8-bit and float sources, and
+     geom.cu K=1, 8 and 5, each torch.equal to the same views'
+     single-view launches and held to its batched plain version at the
+     single-view bars;
   3c. hold the geometric-consistency kernel bitwise (torch.equal) to its
      plain version and to its first design on a non-round rig at 320x240
      / 4 sources (+1 padded slot), 800x592 and 1600x1184 / 8 sources: K=1
@@ -34,7 +41,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      shipping PatchMatchParams(), warm-up then timed; 13 kernel launches
      per solve; median interior depth error below 0.15; then (5b) the
      same solve on float sources, 13 launches of the float-source
-     instantiation;
+     instantiation; then (5c) the batched executor: reference views 0-3
+     of phase 8's scene (8 sources each) in one solve_batch at 1600x1184
+     and at 800x592, 13 ZNCC launches for the batch, each view
+     torch.equal to its own run_patchmatch and under 0.15 median error,
+     the batch and the views one by one timed in turns, one batched and
+     one single solve profiled (device busy, idle share), and the
+     batched kernels timed per launch at B = 4 beside their plain
+     versions and bounds;
   6. per-launch kernel times at the main paths' shapes beside the plain
      version and the bound (ZNCC on 8-bit and on float sources), each
      ZNCC K's and geom's ptxas registers and blocks per SM (occupancy
@@ -69,7 +83,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      launches timed with CUDA events beside their bound; then the same
      fusion through the plain sampler (the PLY bytes must be equal), and
      a prior-aware fusion with a x1.002 second candidate through the
-     kernel and through the plain version (equal PLY bytes);
+     kernel and through the plain version (equal PLY bytes); then (8b)
+     the same folder through run_pipeline with view_batch=4 (batches of
+     4, 4 and 1) into a fresh output directory: its launches (one
+     solve's per batch), stage walls and the cloud at phase 8's bars;
   9. (run after 6) the ZNCC cost decomposition and the lane probes:
      the six probes of csrc/probes.cu bitwise against their plain
      versions and numpy, on the probe tool's words and on
@@ -662,7 +679,501 @@ def run_pipeline_phase(scene, dev, work, ref_err):
     assert plain_equal
     assert len(sampler_ms) == n_views, sampler_ms
     assert len(dual_pts) > 0 and dual["auto"][0] == dual["plain"][0]
-    return {"launches": launches, "dual_launches": dual["auto"][2]}
+    return {"launches": launches, "dual_launches": dual["auto"][2],
+            "dense": dense, "wall": wall, "points": len(pts)}
+
+
+def batch_views(images, cams, refs, params, dev, drop_last=(), depth_of=None):
+    """Single-view SolverInputs of the reference views `refs` of a scene,
+    each with every other view as a source; a view in `drop_last` loses
+    its last source, which leaves it a padded slot. With `depth_of`
+    (view index -> depth map) each carries its sources' depth maps."""
+    from acmmp_tpu_torch.engine.inputs import build_solver_inputs
+
+    n_src = len(images) - 1
+    out = []
+    for b in refs:
+        src = [j for j in range(len(images)) if j != b]
+        if b in drop_last:
+            src = src[:-1]
+        kw = {}
+        if depth_of is not None:
+            kw["src_depths"] = [depth_of(j) for j in src]
+        out.append(build_solver_inputs(
+            images[b], [images[j] for j in src], cams[b],
+            [cams[j] for j in src], params, num_views_pad=n_src, device=dev,
+            **kw))
+    return out
+
+
+def view_planes(inputs, K, seed):
+    """K random plane fields per view ([K, H, W, 4] each; the windowed
+    law with a cap), each view from its own keys."""
+    from acmmp_tpu_torch.core import geometry as geo
+    from acmmp_tpu_torch.ops import keys, sampling
+
+    H, W = inputs[0].ref_img.shape
+    x, y = geo.pixel_grid(H, W, device=inputs[0].ref_img.device)
+    return [torch_stack([sampling.random_plane(
+        k, inp.ref_cam, x, y, inp.depth_min, inp.depth_max,
+        tile_window=0.125, min_cos=0.25)
+        for k in keys.split(keys.key(seed + b), K)])
+        for b, inp in enumerate(inputs)]
+
+
+def torch_stack(ts, dim=0):
+    import torch
+
+    return torch.stack(ts, dim).contiguous()
+
+
+def zncc_bar(got, ref):
+    """(share of costs beyond the ZNCC bar, max |d|) of `got` against
+    `ref`."""
+    d = (got - ref).abs()
+    bad = (d > ZNCC_ATOL + ZNCC_RTOL * ref.abs()).float().mean().item()
+    return bad, d.max().item()
+
+
+def run_batched_kernels_phase(dev):
+    """Phase 3f: each kernel's batched launch against the same views'
+    single-view launches (torch.equal) and against its batched plain
+    version (the single-view checks' bars: the ZNCC bar, geom bitwise),
+    B = 3 reference views of the plane scene at 320x240 / 4 sources and
+    1600x1184 / 8 sources, view 1 with a padded source slot: zncc.cu K=1
+    on the full grid and K=8, 3 and 2 packed at both parities on 8-bit
+    and float sources, geom.cu K=1 on the full grid and K=8 and 5 packed
+    at both parities. One launch per batch. Returns the largest |d| of
+    each batched kernel against its plain version at 1600x1184, by
+    (kind, K)."""
+    import torch
+
+    from acmmp_tpu_torch.config import PatchMatchParams
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc
+    from acmmp_tpu_torch.ops import geom as geom_ops
+    from acmmp_tpu_torch.ops import ncc as ncc_ops
+    from acmmp_tpu_torch.ops import parity
+    from acmmp_tpu_torch.parallel.sharding import stack_solver_inputs
+    from acmmp_tpu_torch.utils.synth import textured_plane_scene
+
+    errs = {}
+    params = PatchMatchParams()
+    for width, height, n_src in ((320, 240, 4), (1600, 1184, 8)):
+        images, cams, pz = textured_plane_scene(
+            n_views=n_src + 1, width=width, height=height,
+            f=600.0 * width / 320.0, plane_z=5.0)
+        Hs, Ws = images[0].shape
+        gy = np.linspace(0.0, 0.3, Hs, dtype=np.float32)[:, None]
+
+        def depth_of(j):
+            return np.broadcast_to(pz + (gy if j % 2 else -gy),
+                                   (Hs, Ws)).astype(np.float32)
+
+        for kparams in (params, dataclasses.replace(params,
+                                                    ncc_src_u8=False)):
+            kind = cuda_ncc.source_type(kparams)
+            pparams = dataclasses.replace(kparams, ncc_backend="plain")
+            views = batch_views(images, cams, (0, 1, 2), kparams, dev,
+                                drop_last=(1,), depth_of=depth_of)
+            nv = [int(v.view_mask.sum()) for v in views]
+            assert nv == [n_src, n_src - 1, n_src], nv
+            batch = stack_solver_inputs(views)
+            vg_b = ncc_ops.make_view_geometry(batch.ref_cam, batch.src_cams)
+            vgs = [ncc_ops.make_view_geometry(v.ref_cam, v.src_cams)
+                   for v in views]
+            line = []
+            for K, off0 in ((1, None), (8, 0), (8, 1), (3, 0), (3, 1),
+                            (2, 0), (2, 1)):
+                planes = view_planes(views, K, 300 + 10 * K)
+                if off0 is not None:
+                    planes = [parity.pack_rows_c(p, off0).contiguous()
+                              for p in planes]
+                stack = torch_stack(planes, 1)
+
+                def run(p, ref, src, vg, hyps, n):
+                    if off0 is None:
+                        return ncc_ops.multiview_zncc(ref, src, vg, hyps, p,
+                                                      n_views=n)
+                    return ncc_ops.multiview_zncc_packed(
+                        ref, src, vg, hyps, p, off0, n_views=n)
+
+                before = cuda_ncc.total_launches()
+                got = run(kparams, batch.ref_img, batch.src_imgs, vg_b,
+                          stack, nv)
+                assert cuda_ncc.total_launches() == before + 1
+                singles = [run(kparams, v.ref_img, v.src_imgs, vgs[b],
+                               planes[b], nv[b])
+                           for b, v in enumerate(views)]
+                ref = run(pparams, batch.ref_img, batch.src_imgs, vg_b,
+                          stack, nv)
+                torch.cuda.synchronize()
+                equal = all(torch.equal(got[:, b], s)
+                            for b, s in enumerate(singles))
+                bars = [zncc_bar(got[:, b, ..., :n], ref[:, b, ..., :n])
+                        for b, n in enumerate(nv)]
+                bad = max(b_ for b_, _ in bars)
+                err = max(e for _, e in bars)
+                pad = bool((got[:, 1, ..., nv[1]:] == kparams.cost_max).all())
+                if width == 1600:
+                    errs[(kind, K)] = max(errs.get((kind, K), 0.0), err)
+                line.append(f"K={K} off0={off0}: == singles {equal}, vs "
+                            f"plain bad {bad:.2e} max|d| {err:.2e}")
+                assert equal, (width, kind, K, off0)
+                assert bad < ZNCC_MAX_FRAC, (width, kind, K, off0, bad)
+                assert pad, (width, kind, K, off0)
+            log(f"phase 3f: batched zncc.cu, {width}x{height}, B=3 (view 1 "
+                f"{nv[1]} of {n_src} sources), {kind} sources: "
+                + "; ".join(line))
+            if kind != "u8":
+                continue
+            line = []
+            for K, off0 in ((1, None), (8, 0), (8, 1), (5, 0), (5, 1)):
+                planes = view_planes(views, K, 400 + 10 * K)
+                if off0 is not None:
+                    planes = [parity.pack_rows_c(p, off0).contiguous()
+                              for p in planes]
+                args = (batch.ref_cam, batch.src_cams, batch.src_depths,
+                        torch_stack(planes, 1))
+                before = cuda_geom.total_launches()
+                got = geom_ops.geom_consistency_cost(
+                    *args, params, row_pack_off=off0, n_views=nv)
+                assert cuda_geom.total_launches() == before + 1
+                singles = [geom_ops.geom_consistency_cost(
+                    v.ref_cam, v.src_cams, v.src_depths, planes[b], params,
+                    row_pack_off=off0, n_views=nv[b])
+                    for b, v in enumerate(views)]
+                ref = geom_ops.geom_consistency_cost(
+                    *args, pparams, row_pack_off=off0)
+                torch.cuda.synchronize()
+                equal = all(torch.equal(got[:, b], s)
+                            for b, s in enumerate(singles))
+                eq_plain = bool(torch.equal(got, ref))
+                if width == 1600:
+                    errs[("geom", K)] = max(
+                        errs.get(("geom", K), 0.0),
+                        (got - ref).abs().max().item())
+                line.append(f"K={K} off0={off0}: == singles {equal}, == "
+                            f"plain {eq_plain}")
+                assert equal and eq_plain, (width, K, off0)
+            log(f"phase 3f: batched geom.cu, {width}x{height}, B=3: "
+                + "; ".join(line))
+            del views, batch, got, ref, singles
+    return errs
+
+
+def profile_solve(fn):
+    """(traced wall ms, device-busy ms, device ops, idle share) of one
+    call of `fn` under torch.profiler (CPU and CUDA activity), as
+    tools/torch_solve_profile.py reads them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in events) / 1e3
+    return (wall_ms, busy, sum(e.count for e in events),
+            max(0.0, 1.0 - busy / wall_ms))
+
+
+def run_batched_solve_phase(scenes, dev):
+    """Phase 5c: the batched photometric solve at full width. Reference
+    views 0-3 of phase 8's 9-view scene, each with the 8 others as
+    sources, in one BatchedSolver.solve_batch (B = 4), at 1600x1184 and
+    at 800x592 (the pipeline's coarse scale): 13 ZNCC launches for the
+    batch (counted from 0 around it); each view torch.equal to its own
+    run_patchmatch with the same key; each view's median interior error
+    under 0.15; then, after a warm-up, the batch and the same four views
+    solved one by one, timed in turns (one by one, batch, batch, one by
+    one; host clock to a synchronize, and CUDA events), and one batched
+    and one single solve under torch.profiler. At 1600x1184 the batched
+    kernels are also timed per launch (B = 4) beside their batched plain
+    versions. Returns the per-launch table of the batched kernels and
+    the launches of the checked batched solve."""
+    import torch
+
+    from acmmp_tpu_torch.config import PatchMatchParams
+    from acmmp_tpu_torch.engine.patchmatch import Mode, run_patchmatch
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, keys
+    from acmmp_tpu_torch.pipeline.batched import BatchedSolver
+
+    params = PatchMatchParams()
+    solver = BatchedSolver(params)
+    refs = (0, 1, 2, 3)
+    ks = [keys.key(500 + b) for b in refs]
+    table, launched = {}, None
+    for label in ("1600x1184", "800x592"):
+        images, cams, pz = scenes[label]
+        H, W = images[0].shape
+        views = batch_views(images, cams, refs, params, dev)
+
+        def batched():
+            return solver.solve_batch(views, ks, Mode())
+
+        def one_by_one():
+            return [run_patchmatch(v, k, params, Mode())
+                    for v, k in zip(views, ks)]
+
+        batched()
+        one_by_one()
+        torch.cuda.synchronize()
+        cuda_ncc.reset_launch_counts()
+        cuda_geom.reset_launch_counts()
+        outs = batched()
+        torch.cuda.synchronize()
+        counts = dict(cuda_ncc.launches)
+        assert sum(cuda_ncc.launches_f32.values()) == 0
+        assert cuda_geom.total_launches() == 0
+        singles = one_by_one()
+        torch.cuda.synchronize()
+        equal = [all(torch.equal(getattr(o, f), getattr(s, f))
+                     for f in o._fields) for o, s in zip(outs, singles)]
+        errs = [interior_error(o.depth[:H, :W], W, H, pz)[0] for o in outs]
+        n_sweeps = 2 * params.max_iterations
+        want = {1: 1, 8: n_sweeps, 3: n_sweeps, 2: n_sweeps}
+        log(f"phase 5c: {label}, views {refs} x 8 sources, one "
+            f"solve_batch: launches {counts} (want {want}); each view == "
+            f"its run_patchmatch {equal}; median interior |depth - z| "
+            f"{[round(e, 5) for e in errs]} (bar 0.15)")
+        assert counts == want, counts
+        assert all(equal), equal
+        assert all(e < 0.15 for e in errs), errs
+        if launched is None:
+            launched = counts
+        del outs, singles
+
+        def timed(fn):
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+            torch.cuda.synchronize()
+            ev0.record()
+            t0 = time.perf_counter()
+            fn()
+            ev1.record()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, ev0.elapsed_time(ev1)
+
+        turns = [("one by one", one_by_one), ("batch", batched),
+                 ("batch", batched), ("one by one", one_by_one)]
+        walls = {}
+        for name, fn in turns:
+            walls.setdefault(name, []).append(timed(fn))
+        prof_b = profile_solve(batched)
+        prof_1 = profile_solve(lambda: run_patchmatch(views[0], ks[0],
+                                                      params, Mode()))
+        b_ms = [w for w, _ in walls["batch"]]
+        s_ms = [w / len(refs) for w, _ in walls["one by one"]]
+        log(f"  {label}: batch of {len(refs)} {walls['batch']} ms (host, "
+            f"CUDA events), {[round(w / len(refs), 2) for w in b_ms]} ms "
+            f"per view; one by one {walls['one by one']} ms, "
+            f"{[round(w, 2) for w in s_ms]} ms per view; per-view ratio "
+            f"batch / one by one {min(b_ms) / len(refs) / min(s_ms):.4f}")
+        for name, (wall, busy, n_ops, idle) in (("batch", prof_b),
+                                                 ("single", prof_1)):
+            log(f"  {label}: profiled {name} solve: wall {wall:.1f} ms "
+                f"(traced), device busy {busy:.1f} ms over {n_ops} device "
+                f"ops, idle share {idle:.3f}")
+        if label == "1600x1184":
+            table = time_batched_kernels(views, pz, dev)
+        del views
+    return table, launched
+
+
+def time_batched_kernels(views, pz, dev):
+    """Per-launch times of the batched kernels at B = len(views) on the
+    main path's shapes (1600x1184 / 8 sources): zncc.cu K=1 full grid
+    and K=8/3/2 packed, geom.cu K=1 and K=8/5 packed (on depth maps of
+    the plane), each beside its batched plain version and its bound
+    (B times the single-view bound). Returns {(kernel, K): (ms, plain ms,
+    bound ms, bound by)}."""
+    import torch
+
+    from acmmp_tpu_torch.config import PatchMatchParams
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc
+    from acmmp_tpu_torch.ops import geom as geom_ops
+    from acmmp_tpu_torch.ops import ncc as ncc_ops
+    from acmmp_tpu_torch.ops import parity
+    from acmmp_tpu_torch.parallel.sharding import stack_solver_inputs
+
+    params = PatchMatchParams()
+    pparams = PatchMatchParams(ncc_backend="plain")
+    B = len(views)
+    batch = stack_solver_inputs(views)
+    _, H, W = batch.ref_img.shape
+    V, Hs, Ws = batch.src_imgs.shape[1:]
+    nv = batch.view_mask.sum(-1).tolist()
+    vg = ncc_ops.make_view_geometry(batch.ref_cam, batch.src_cams)
+    preps = {None: cuda_ncc.prepare(batch.ref_img, batch.src_imgs, vg,
+                                    params, None)}
+    preps[0] = cuda_ncc.prepare(batch.ref_img, batch.src_imgs, vg, params, 0,
+                                shared=preps[None])
+    T = len(params.tap_offsets) ** 2
+    table = {}
+    for K in (1, 8, 3, 2):
+        off0 = None if K == 1 else 0
+        Hg = H if off0 is None else H // 2
+        planes = view_planes(views, K, 600 + K)
+        if off0 is not None:
+            planes = [parity.pack_rows_c(p, off0) for p in planes]
+        stack = torch_stack(planes, 1)
+
+        def kern():
+            return cuda_ncc.multiview_zncc_cuda(
+                batch.ref_img, batch.src_imgs, vg, stack, params,
+                row_pack_off=off0, n_views=nv, prep=preps[off0])
+
+        def plain():
+            if off0 is None:
+                return ncc_ops.multiview_zncc(batch.ref_img, batch.src_imgs,
+                                              vg, stack, pparams)
+            return ncc_ops.multiview_zncc_packed(
+                batch.ref_img, batch.src_imgs, vg, stack, pparams, off0)
+
+        ms = time_ms(kern, 10)
+        plain_ms = time_ms(plain, 1)
+        evals = K * sum(nv) * T * Hg * W
+        nbytes = (K * B * Hg * W * 16 + sum(nv) * Hs * Ws
+                  + B * (2 * T + 3) * Hg * W * 4 + K * B * Hg * W * V * 4)
+        t_ops = evals * OPS_PER_TAP_EVAL / PEAK_FP32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ms = max(t_ops, t_bytes)
+        b_by = "operations" if t_ops >= t_bytes else "bytes"
+        table[("zncc", K)] = (ms, plain_ms, b_ms, b_by)
+        log(f"  batched zncc.cu K={K}, B={B}, grid {Hg}x{W}: {ms:.4f} ms "
+            f"per launch, {ms / B:.4f} ms per view; plain {plain_ms:.3f} "
+            f"ms; bound {b_ms:.4f} ms ({b_by})")
+    del preps
+    gviews = [v._replace(src_depths=torch.full((V, Hs, Ws), pz,
+                                               device=dev)) for v in views]
+    gbatch = stack_solver_inputs(gviews)
+    gprep = cuda_geom.prepare(gbatch.ref_cam, gbatch.src_cams,
+                              gbatch.src_depths)
+    for K in (1, 8, 5):
+        off0 = None if K == 1 else 0
+        Hg = H if off0 is None else H // 2
+        planes = view_planes(views, K, 700 + K)
+        if off0 is not None:
+            planes = [parity.pack_rows_c(p, off0) for p in planes]
+        args = (gbatch.ref_cam, gbatch.src_cams, gbatch.src_depths,
+                torch_stack(planes, 1))
+
+        def gkern():
+            return cuda_geom.geom_consistency_cost_cuda(
+                *args, params, row_pack_off=off0, n_views=nv, prep=gprep)
+
+        def gplain():
+            return geom_ops.geom_consistency_cost(*args, pparams,
+                                                  row_pack_off=off0)
+
+        ms = time_ms(gkern, 20)
+        plain_ms = time_ms(gplain, 2)
+        ops = ((K * GEOM_OPS_PER_EVAL + GEOM_OPS_PER_PIXEL_VIEW)
+               * sum(nv) * Hg * W)
+        nbytes = (K * B * Hg * W * 16 + sum(nv) * Hs * Ws * 4
+                  + K * B * Hg * W * V * 4)
+        t_ops = ops / PEAK_FP32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ms = max(t_ops, t_bytes)
+        b_by = "operations" if t_ops >= t_bytes else "bytes"
+        table[("geom", K)] = (ms, plain_ms, b_ms, b_by)
+        log(f"  batched geom.cu K={K}, B={B}, grid {Hg}x{W}: {ms:.4f} ms "
+            f"per launch, {ms / B:.4f} ms per view; plain {plain_ms:.3f} "
+            f"ms; bound {b_ms:.4f} ms ({b_by})")
+    return table
+
+
+def run_batched_pipeline_phase(dense, scene, dev, phase8):
+    """Phase 8b: phase 8's dense folder through run_pipeline with
+    PipelineConfig(view_batch=4) into a fresh output directory: the
+    batched executor solves each pass's 9 views in batches of 4, 4 and 1.
+    Launch counts from 0 around the run (each batch issues one solve's
+    launches), the stage walls and solves/s, the .dmb layout, and the
+    fused cloud at phase 8's bars. The PLY need not equal phase 8's: a
+    batch reads its batch-mates' maps of the previous pass in the
+    multi_geometry pass, where the one-view path reads this pass's."""
+    import torch
+
+    from acmmp_tpu_torch.config import PipelineConfig
+    from acmmp_tpu_torch.io import read_dmb, read_ply
+    from acmmp_tpu_torch.io.dense_folder import result_dir
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, cuda_sample
+    from acmmp_tpu_torch.pipeline.scheduler import run_pipeline
+
+    images, cams, plane_z = scene
+    n_views = len(images)
+    H, W = images[0].shape
+    B = 4
+    cfg = PipelineConfig(view_batch=B, output_dir="ACMMP_B4")
+    records = _Records()
+    port_log = logging.getLogger("acmmp_tpu_torch")
+    port_log.addHandler(records)
+    counters = {"zncc": cuda_ncc, "geom": cuda_geom, "sample": cuda_sample}
+    for c in counters.values():
+        c.reset_launch_counts()
+    t0 = time.perf_counter()
+    ply = run_pipeline(dense, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: dict(c.launches) for k, c in counters.items()}
+    port_log.removeHandler(records)
+    stages = [(r.stage, r.seconds) for r in records.records
+              if hasattr(r, "stage")]
+    lines = [r.getMessage() for r in records.records
+             if r.getMessage().startswith(("pipeline:", "fusion:"))]
+
+    out = os.path.dirname(ply)
+    assert os.path.basename(out) == "ACMMP_B4", out
+    for i in range(n_views):
+        rdir = result_dir(out, i)
+        for name, nb in (("depths.dmb", 1), ("depths_geom.dmb", 1),
+                         ("costs.dmb", 1), ("normals.dmb", 3)):
+            size = os.path.getsize(os.path.join(rdir, name))
+            assert size == 16 + 4 * H * W * nb, (i, name, size)
+        markers = [f for f in os.listdir(rdir) if f.startswith(".pass_")]
+        assert len(markers) == 6, (i, markers)
+    med, share = interior_error(
+        read_dmb(os.path.join(result_dir(out, 0), "depths_geom.dmb")), W, H,
+        plane_z)
+    pts, _, _ = read_ply(ply)
+    err = np.abs(pts[:, 2] - plane_z)
+    f_med, f_share = float(np.median(err)), float((err < 0.5).mean())
+    # per pass ceil(9 / 4) batches, each one solve's launches; per view
+    # and scale a first solve, its planar-prior second solve and two
+    # geometric solves
+    n_sweeps = 2 * cfg.patchmatch.max_iterations
+    n_batches = -(-n_views // B)
+    solves, geom_solves = 8 * n_batches, 4 * n_batches
+    want = {"zncc": {1: solves, 8: solves * n_sweeps, 3: solves * n_sweeps,
+                     2: solves * n_sweeps},
+            "geom": {1: geom_solves, 8: geom_solves * n_sweeps,
+                     5: geom_solves * n_sweeps},
+            "sample": {"gather2d": n_views}}
+    ratio = {k: sum(launches[k].values())
+             / max(sum(phase8["launches"][k].values()), 1)
+             for k in ("zncc", "geom")}
+    log(f"  pipeline wall {wall:.2f} s (phase 8 {phase8['wall']:.2f} s); "
+        + "; ".join(lines))
+    log("  stage walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in stages))
+    log(f"  launches: {launches} (want {want}); against phase 8's: zncc "
+        f"{ratio['zncc']:.4f}, geom {ratio['geom']:.4f}")
+    log(f"  fused points {len(pts)} (phase 8: {phase8['points']}); median "
+        f"|z - plane| {f_med:.6f} (bar {FUSED_MEDIAN_BAR}), share < 0.5 "
+        f"{f_share:.5f} (bar {FUSED_SHARE_BAR}); view 0 final depth median "
+        f"interior error {med:.5f}, share < 0.5 {share:.4f}")
+    assert launches == want, (launches, want)
+    assert np.isfinite(pts).all()
+    assert len(pts) >= FUSED_MIN_VIEW_SHARE * H * W, len(pts)
+    assert f_med < FUSED_MEDIAN_BAR, f_med
+    assert f_share > FUSED_SHARE_BAR, f_share
+    return {"launches": launches, "wall": wall, "points": len(pts)}
 
 
 def time_ms(fn, reps):
@@ -1110,18 +1621,19 @@ def run_ablation_phase(dev, big, random8):
     # the phase fails
     assert sass is not None and zsass is not None and gsass is not None, (
         "cuobjdump not found beside nvcc: no SASS counts")
-    # every K on both source types
-    assert len(zsass) == 2 * len(cuda_ncc.SUPPORTED_K), sorted(zsass)
+    # every K on both source types, for one view and for a batch
+    assert len(zsass) == 4 * len(cuda_ncc.SUPPORTED_K), sorted(zsass)
     for fn_name, c in sorted(sass.items()):
         loop = ("no backward branch found" if c["loop"] is None
                 else sass_line(c["loop"]))
         log(f"phase 9d: {ablate_mode_of(fn_name)}: SASS {sass_line(c['all'])}"
             f"; in its loops: {loop}")
     for fn_name, c in sorted(zsass.items()):
-        m = re.search(r"zncc_kernelILi(\d+)E(j|6float4)E", fn_name)
+        m = re.search(r"zncc_kernelILi(\d+)E(j|6float4)Lb([01])E", fn_name)
         assert m, fn_name
         K, f32 = int(m.group(1)), m.group(2) == "6float4"
-        kind = "float sources" if f32 else "8-bit sources"
+        kind = ("float sources" if f32 else "8-bit sources") + (
+            ", batched" if m.group(3) == "1" else "")
         tap = ("no loop with a MUFU.RCP found" if c["tap"] is None
                else sass_line(c["tap"]))
         log(f"phase 9d: zncc.cu K={K}, {kind}: SASS {sass_line(c['all'])}; "
@@ -1146,13 +1658,15 @@ def run_ablation_phase(dev, big, random8):
     # (hypothesis, view) part, GEOM_RCP_PER_VIEW IEEE divisions per view,
     # four views and one 16-byte store per iteration where V is a
     # multiple of 4, else one view and one 4-byte store
-    assert len(gsass) == 2, sorted(gsass)
+    assert len(gsass) == 4, sorted(gsass)
     for fn_name, c in sorted(gsass.items()):
         vec4 = "geom_kernelILb1E" in fn_name
+        batched = "Lb1EEEv" in fn_name
         views = 4 if vec4 else 1
         loop = ("no loop with a MUFU.RCP found" if c["tap"] is None
                 else sass_line(c["tap"]))
-        log(f"phase 9d: geom.cu, {'V % 4 == 0' if vec4 else 'other V'}: "
+        log(f"phase 9d: geom.cu, {'V % 4 == 0' if vec4 else 'other V'}"
+            f"{', batched' if batched else ''}: "
             f"SASS {sass_line(c['all'])}; in the view loop "
             f"({c['tap_loops']} found, {views} views an iteration): {loop}")
         t = c["tap"]
@@ -1614,6 +2128,9 @@ def main() -> int:
                                  valid_from=vf // 2)
         del rig, smooth, band, off, rw, rx, stacks
 
+    # ---- phase 3f: batched launches against single-view launches ----
+    batched_err = run_batched_kernels_phase(dev)
+
     # ---- phase 3d: the fusion sampler against its plain version ----
     from acmmp_tpu_torch.engine import fusion
     from acmmp_tpu_torch.ops import cuda_sample
@@ -1761,6 +2278,10 @@ def main() -> int:
         ", Mode()")
     counts_f32 = full_width_solve(big_f, f_params, plane_z_big_f)
 
+    # ---- phase 5c: the batched photometric solve at full width ----
+    batched_table, _ = run_batched_solve_phase(
+        {f"{w}x{h}": sc for (w, h), sc in chain_scenes.items()}, dev)
+
     # ---- phase 6: per-launch times beside the plain version and bound ----
     def bound(inputs, K, Hg, W, src_bytes):
         """(bound ms, what bounds it, tap evaluations) of one ZNCC launch:
@@ -1783,19 +2304,24 @@ def main() -> int:
     T = len(params.tap_offsets) ** 2
     # (source type, its template argument in the mangled name)
     src_kinds = (("u8", "j"), ("f32", "6float4"))
+    # each K and source type in its instantiation for one view and for a
+    # batch (the template's last argument)
     for kind, tag in src_kinds:
         for K in cuda_ncc.SUPPORTED_K:
-            blocks, threads = cuda_ncc.occupancy(K, T, kind)
-            (r,) = [v for n, v in zregs.items()
-                    if f"zncc_kernelILi{K}E{tag}E" in n]
-            log(f"  zncc.cu K={K}, {kind} sources: {r} registers (ptxas), "
-                f"{blocks} blocks of {threads} threads = "
-                f"{blocks * threads // 32} warps per SM (occupancy "
-                f"calculator, {T} taps)")
-            # the design's register budget; the first design held 12
-            # warps per SM at K=8
-            assert r <= 64, (K, kind, r)
-            assert K != 8 or blocks * threads // 32 >= 24, (blocks, threads)
+            for batched in (False, True):
+                blocks, threads = cuda_ncc.occupancy(K, T, kind, batched)
+                (r,) = [v for n, v in zregs.items()
+                        if f"zncc_kernelILi{K}E{tag}Lb{int(batched)}E" in n]
+                log(f"  zncc.cu K={K}, {kind} sources"
+                    f"{', batched' if batched else ''}: {r} registers "
+                    f"(ptxas), {blocks} blocks of {threads} threads = "
+                    f"{blocks * threads // 32} warps per SM (occupancy "
+                    f"calculator, {T} taps)")
+                # the design's register budget; the first design held 12
+                # warps per SM at K=8
+                assert r <= 64, (K, kind, batched, r)
+                assert K != 8 or blocks * threads // 32 >= 24, (
+                    blocks, threads)
     rows, table = [], {}
     # (label, inputs, params, source bytes per pixel the bound counts: the
     # 8-bit pixel, or the float source's 16-byte quad the kernel reads)
@@ -1868,14 +2394,16 @@ def main() -> int:
     for fn_name, r in sorted(gregs.items()):
         log(f"  geom.cu {fn_name}: {r} registers (ptxas)")
     for V in (5, 8):
-        blocks, threads = cuda_geom.occupancy(V)
-        vec = "geom_kernelILb1E" if V % 4 == 0 else "geom_kernelILb0E"
-        (r,) = [v for n, v in gregs.items() if vec in n]
-        log(f"  geom.cu, V={V}: {r} registers (ptxas), {blocks} blocks of "
-            f"{threads} threads = {blocks * threads // 32} warps per SM "
-            f"(occupancy calculator)")
-        # its __launch_bounds__: 8 blocks of 128 threads, 64 registers
-        assert r <= 64 and blocks >= 8, (V, r, blocks)
+        for batched in (False, True):
+            blocks, threads = cuda_geom.occupancy(V, batched)
+            name = f"geom_kernelILb{int(V % 4 == 0)}ELb{int(batched)}E"
+            (r,) = [v for n, v in gregs.items() if name in n]
+            log(f"  geom.cu, V={V}{', batched' if batched else ''}: {r} "
+                f"registers (ptxas), {blocks} blocks of {threads} threads "
+                f"= {blocks * threads // 32} warps per SM (occupancy "
+                f"calculator)")
+            # its __launch_bounds__: 8 blocks of 128 threads, 64 registers
+            assert r <= 64 and blocks >= 8, (V, batched, r, blocks)
     geom_table, geom_first_ms = {}, {}
     for (width, height), (images, cams, pz) in chain_scenes.items():
         label = f"{width}x{height}"
@@ -1987,6 +2515,10 @@ def main() -> int:
     ref_err = photometric_yardstick(fine_scene, dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     pipe = run_pipeline_phase(fine_scene, dev, work, ref_err)
+    # ---- phase 8b: the same folder through the batched executor ----
+    log(f"phase 8b: run_pipeline on phase 8's dense folder, "
+        f"PipelineConfig(view_batch=4)")
+    pipe_b = run_batched_pipeline_phase(pipe["dense"], fine_scene, dev, pipe)
     shutil.rmtree(work)
     n_sweeps = 2 * params.max_iterations
     n_views = len(fine_scene[0])
@@ -2029,6 +2561,20 @@ def main() -> int:
             "replaces": SAMPLE_TPU_KERNEL, "launches": launches,
             "max_abs_err": sample_err[C], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    # the batched launches (phase 5c's B = 4 times, phase 8b's launches)
+    for kernel, K in (("zncc", 1), ("zncc", 8), ("zncc", 3), ("zncc", 2),
+                      ("geom", 1), ("geom", 8), ("geom", 5)):
+        ms, plain_ms, b_ms, b_by = batched_table[(kernel, K)]
+        rows.append({
+            "name": f"{kernel}_k{K}_batched", "route": "cuda",
+            "source": f"acmmp_tpu_torch/csrc/{kernel}.cu",
+            "replaces": TPU_KERNEL[K] if kernel == "zncc"
+            else GEOM_TPU_KERNEL,
+            "launches": pipe_b["launches"][kernel][K],
+            "max_abs_err": batched_err[("u8" if kernel == "zncc" else kernel,
+                                        K)],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
     rows += ablation_rows
     assert all(math.isfinite(r["ms"]) for r in rows)
     log(f"chip_smoke wall {time.perf_counter() - t_script:.1f} s")

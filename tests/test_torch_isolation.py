@@ -40,7 +40,8 @@ assert "acmmp_tpu_torch.ops.cuda_ncc" in sys.modules
 assert "acmmp_tpu_torch.ops.cuda_geom" in sys.modules
 assert "acmmp_tpu_torch.ops.cuda_sample" in sys.modules
 for m in ("io.dmb", "io.ply", "io.priors", "utils.log", "engine.fusion",
-          "pipeline.scheduler", "cli", "tools.prop_ablate",
+          "pipeline.scheduler", "pipeline.batched", "parallel.sharding",
+          "cli", "tools.prop_ablate",
           "tools.mosaic_probe", "ops.cuda_ablate", "ops.cuda_probes"):
     assert "acmmp_tpu_torch." + m in sys.modules, m
 """

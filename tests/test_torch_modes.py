@@ -119,7 +119,8 @@ def test_init_state_matches_jax(problem, flags):
                                          jax.random.key_data(key),
                                          device="cpu")
     want = jpm.init_state(jin, key, JP, jpm.Mode(**{flags: True}))
-    got = tpm.init_state(tin, tkey, TP, tpm.Mode(**{flags: True}))
+    got = tpm.one_view(tpm.init_state, tin, tkey, TP,
+                       tpm.Mode(**{flags: True}))
     np.testing.assert_allclose(got.planes.numpy(), np.asarray(want.planes),
                                rtol=1e-5, atol=1e-5)
     _zncc_bar(got.ncc_pv, want.ncc_pv)
@@ -164,10 +165,10 @@ def _carried_state(problem, mode, pre_costs, views=4):
                                  cams[1:views], TP, pad_h=1, pad_w=1,
                                  device="cpu", **kw)
     key = keys.key(11)
-    state = tpm.init_state(inputs, key, TP, mode)
+    state = tpm.one_view(tpm.init_state, inputs, key, TP, mode)
     for s in range(4):
-        state = tpm.sweep_once(state, inputs, s, keys.fold_in(key, s), TP,
-                               mode)
+        state = tpm.one_view(tpm.sweep_once, state, inputs, s,
+                             keys.fold_in(key, s), TP, mode)
     vg = tncc.make_view_geometry(inputs.ref_cam, inputs.src_cams)
     ncc = tncc.multiview_zncc(inputs.ref_img, inputs.src_imgs, vg,
                               state.planes[None], TP,

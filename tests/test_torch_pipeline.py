@@ -7,9 +7,10 @@ two scales (32x24, then JBU to 64x48 and the hierarchy pass): 32 solves
 (each view's first solve, its planar-prior second solve where the
 triangulation gives a prior, and two geometric solves, per scale). The
 tests then check its disk layout and fused cloud, its resume, one
-geometric pass of each package's `process_problem` on copies of its
-checkpoints (the bar of tests/test_torch_geom_solve.py: 97% of interior
-depths within 1%), and the CLI."""
+geometric pass (the JAX package's `process_problem`, the port's
+`process_batch` of one view) on copies of its checkpoints (the bar of
+tests/test_torch_geom_solve.py: 97% of interior depths within 1%), and
+the CLI, whose `reconstruct --view_batch 2` runs the batched executor."""
 
 import dataclasses
 import glob
@@ -30,6 +31,7 @@ from acmmp_tpu_torch.config import (FusionParams, PatchMatchParams,
                                     PipelineConfig)
 from acmmp_tpu_torch.io import read_dmb, read_ply
 from acmmp_tpu_torch.pipeline import scheduler as tsched
+from acmmp_tpu_torch.pipeline.batched import BatchedSolver
 from acmmp_tpu_torch.utils.synth import (textured_plane_scene,
                                          write_dense_folder)
 
@@ -134,9 +136,9 @@ def test_pipeline_resume(run, tmp_path):
 
 
 def test_geometric_pass_agrees_with_jax(run, tmp_path):
-    """View 0's last geometric pass (multi_geometry, pass 5) through each
-    package's process_problem, from copies of the same checkpoints, with
-    the same key."""
+    """View 0's last geometric pass (multi_geometry, pass 5) through the
+    JAX package's process_problem and the port's process_batch of that
+    one view, from copies of the same checkpoints, with the same key."""
     results = {}
     for name, sched, cfg in (
             ("jax", jsched, JaxPipelineConfig(
@@ -150,12 +152,16 @@ def test_geometric_pass_agrees_with_jax(run, tmp_path):
         sched.compute_multiscale_settings(dense, problems, cfg.patchmatch)
         for p in problems:
             p.cur_image_size = p.max_image_size
-        kw = dict(device="cpu") if name == "port" else {}
-        sched.process_problem(
-            dense, os.path.join(dense, "ACMMP"), problems, 0, cfg,
-            sched.ViewLoader(dense), geom_consistency=True,
-            planar_prior=False, hierarchy=False, multi_geometry=True,
-            pass_tag=5, **kw)
+        common = dict(geom_consistency=True, planar_prior=False,
+                      hierarchy=False, multi_geometry=True, pass_tag=5)
+        out = os.path.join(dense, "ACMMP")
+        if name == "port":
+            sched.process_batch(
+                dense, out, problems, [0], cfg, sched.ViewLoader(dense),
+                BatchedSolver(cfg.patchmatch), device="cpu", **common)
+        else:
+            sched.process_problem(dense, out, problems, 0, cfg,
+                                  sched.ViewLoader(dense), **common)
         results[name] = read_dmb(os.path.join(
             dense, "ACMMP", "2333_00000000", "depths_geom.dmb"))
     port, ref = results["port"], results["jax"]
@@ -169,7 +175,10 @@ def test_geometric_pass_agrees_with_jax(run, tmp_path):
 def test_cli_friendly_errors(tmp_path, run):
     """A missing or non-dense folder exits 2 (tests/test_pipeline.py::
     test_cli_friendly_error_on_missing_folder); --mesh is not a flag of
-    the port; view_batch > 1 is not ported and says so."""
+    the port; `reconstruct --view_batch 2` runs the batched executor on
+    the file's 64x48 folder (the CLI's default params: one scale), its
+    cloud meets the bars of test_pipeline_layout_and_cloud, and the JAX
+    package's fusion of its checkpoints writes its PLY bytes."""
     for cmd in ("reconstruct", "fuse"):
         with pytest.raises(SystemExit) as e:
             main([cmd, str(tmp_path / "nope")])
@@ -180,5 +189,22 @@ def test_cli_friendly_errors(tmp_path, run):
     with pytest.raises(SystemExit) as e:
         main(["reconstruct", run[0], "--mesh"])
     assert e.value.code == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 items 3 and 6"):
-        main(["reconstruct", run[0], "--view_batch", "2", "--device", "cpu"])
+    dense = str(tmp_path / "s")
+    shutil.copytree(run[0], dense, ignore=shutil.ignore_patterns("ACMMP"))
+    assert main(["reconstruct", dense, "--view_batch", "2", "--device",
+                 "cpu", "--num_consistent_thresh", "2"]) == 0
+    out = os.path.join(dense, "ACMMP")
+    markers = glob.glob(os.path.join(out, "2333_*", ".pass_*.json"))
+    assert len(markers) == 3 * N_VIEWS, markers
+    ply = os.path.join(out, "ACMMP_model.ply")
+    pts, _, _ = read_ply(ply)
+    assert len(pts) > 100, len(pts)
+    err = np.abs(pts[:, 2] - run[2])
+    assert np.median(err) < 0.1, np.median(err)
+    assert (err < 0.5).mean() > 0.9
+    jply = jax_run_fusion(dense, out, jsched.generate_sample_list(dense),
+                          geom_consistency=True,
+                          fp=JaxFusionParams(num_consistent_thresh=2),
+                          ply_name="jax.ply")
+    with open(jply, "rb") as f, open(ply, "rb") as g:
+        assert f.read() == g.read()

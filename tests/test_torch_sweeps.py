@@ -40,12 +40,17 @@ def _jax_zncc(jvg):
     of the port's (same signature, same layout): with it the port's sweep
     differs from the JAX sweep only in its own logic and f32 geometry.
     Eager, as the JAX sweep runs it here: a jitted ZNCC rounds
-    differently."""
+    differently. The port's one-view sweep is its batched sweep on a
+    batch of one, so its reference side, sources and planes carry a batch
+    axis of 1, which the bridge takes off for the JAX call and puts back
+    on its costs."""
     def zncc(ref_center, tap_values, x, y, src_imgs, vg, planes, params):
-        j = lambda t: jnp.asarray(t.numpy())                    # noqa: E731
-        out = jncc._zncc_grids(j(ref_center), [j(t) for t in tap_values],
-                               j(x), j(y), j(src_imgs), jvg, j(planes), JP)
-        return torch.as_tensor(np.array(out))
+        j = lambda t: jnp.asarray(t.numpy()[0])                 # noqa: E731
+        out = jncc._zncc_grids(
+            j(ref_center), [j(t) for t in tap_values],
+            jnp.asarray(x.numpy()), jnp.asarray(y.numpy()), j(src_imgs), jvg,
+            jnp.asarray(planes.squeeze(-4).numpy()), JP)
+        return torch.as_tensor(np.array(out)).unsqueeze(-4)
     return zncc
 
 
@@ -97,7 +102,8 @@ def test_sweep_matches_jax(problem, flags, sweep):
     h, w = cost.shape
     black = (np.add.outer(np.arange(h), np.arange(w)) % 2) == 0
     jstate = jpm.init_state(jin, key, JP, jmode)
-    sigma = float((tpm.init_state(tin, tkey, TP, tmode).ncc_pv.numpy()
+    sigma = float((tpm.one_view(tpm.init_state, tin, tkey, TP,
+                                tmode).ncc_pv.numpy()
                    - np.asarray(jstate.ncc_pv)).std())
     clean, gen = tncc._zncc_grids, torch.Generator().manual_seed(0)
 
@@ -111,10 +117,11 @@ def test_sweep_matches_jax(problem, flags, sweep):
         np.array(a)) for a in jstate))
     jnext = jpm.sweep_once(jstate, jin, s, jax.random.fold_in(key, s), JP,
                            jmode)
-    args = (tstate, tin, s, keys.fold_in(tkey, s), TP, tmode)
-    tnext = tpm.sweep_once(*args)
-    tnoisy = _swap_zncc(noisy, tpm.sweep_once, *args)
-    tjax = _swap_zncc(bridge, tpm.sweep_once, *args)
+    args = (tpm.sweep_once, tstate, tin, s, keys.fold_in(tkey, s), TP,
+            tmode)
+    tnext = tpm.one_view(*args)
+    tnoisy = _swap_zncc(noisy, tpm.one_view, *args)
+    tjax = _swap_zncc(bridge, tpm.one_view, *args)
     active = (black if s % 2 == 0 else ~black)
     jp, tp = np.asarray(jnext.planes)[:h, :w], tnext.planes[:h, :w]
     bridged = _agree(tjax.planes[:h, :w], jp, active)

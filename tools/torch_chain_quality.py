@@ -49,7 +49,7 @@ def main() -> int:
     from acmmp_tpu_torch.config import PatchMatchParams, PipelineConfig
     from acmmp_tpu_torch.engine.inputs import build_solver_inputs
     from acmmp_tpu_torch.engine.patchmatch import (Mode, init_state,
-                                                   run_patchmatch)
+                                                   one_view, run_patchmatch)
     from acmmp_tpu_torch.ops import keys
     from acmmp_tpu_torch.ops.jbu import jbu_depth, jbu_normal_cost
     from acmmp_tpu_torch.utils.synth import textured_plane_scene
@@ -106,7 +106,7 @@ def main() -> int:
                               out.cost[:h, :w].contiguous(), shipped)
     fin = inputs(fine, shipped, init_depth=up_d.cpu().numpy(),
                  init_normal_world=up_n.cpu().numpy())
-    state = init_state(fin, key, shipped, Mode(hierarchy=True))
+    state = one_view(init_state, fin, key, shipped, Mode(hierarchy=True))
     pre = state.pre_costs[:2 * h, :2 * w].float().cpu()
     margin = shipped.hierarchy_accept_margin
     share = (pre > margin).float().mean().item()
