@@ -8,7 +8,8 @@ consistency cost (csrc/geom.cu) and fusion's sampler (csrc/sample.cu).
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
 Ported so far: every solver mode, the multi-scale scheduler with the
-.dmb disk contract, fusion, and the ``reconstruct``/``fuse`` CLI
+.dmb disk contract, fusion, the DTU evaluation and experiment harness,
+and every subcommand of the JAX package's CLI but ``--mesh``
 (``python -m acmmp_tpu_torch.cli reconstruct <dense_folder>``)."""
 
 from acmmp_tpu_torch import runtime  # noqa: F401  (sets the f32/TF32 policy)

@@ -19,6 +19,7 @@ to the same bits. (The JAX package's PIL fallback gives other values.)
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 from typing import List, Sequence, Tuple
 
@@ -118,6 +119,25 @@ def write_cam_txt(path, cam: NumpyCamera, depth_interval: float = 0.0,
             f.write(" ".join(repr(float(v)) for v in row) + " \n")
         f.write("\n%f %f %f %f\n" % (cam.depth_min, depth_interval,
                                      depth_num, cam.depth_max))
+
+
+def load_cams(dense_folder: str) -> List[NumpyCamera]:
+    """The folder's cameras in id order, each with the size of its image
+    %08d.* in images/, whatever extension it carries (DTU scans are
+    commonly .png, synthetic folders .jpg)."""
+    cam_files = sorted(
+        glob.glob(os.path.join(dense_folder, "cams", "*_cam.txt")))
+    cams = []
+    for i, cf in enumerate(cam_files):
+        cam = read_cam_txt(cf)
+        matches = glob.glob(os.path.join(dense_folder, "images", f"{i:08d}.*"))
+        if not matches:
+            raise FileNotFoundError(
+                f"no image {i:08d}.* in {dense_folder}/images")
+        with PILImage.open(matches[0]) as im:
+            cam.width, cam.height = im.size
+        cams.append(cam)
+    return cams
 
 
 def read_pair_txt(path) -> List[Problem]:

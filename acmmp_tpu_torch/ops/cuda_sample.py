@@ -15,14 +15,16 @@ import torch
 
 from acmmp_tpu_torch.kernels import check_arg
 
-# launches of the kernel; the wrapper adds one where it launches and
-# nowhere else
+# launches of the kernel, in all and by the maps' channel count C; the
+# wrapper adds one to each where it launches and nowhere else
 launches = {"gather2d": 0}
+launches_by_channels = {}
 
 
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
+    launches_by_channels.clear()
 
 
 def total_launches() -> int:
@@ -75,4 +77,5 @@ def gather2d_cuda(maps: torch.Tensor, rr: torch.Tensor, cc: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"gather2d kernel launch failed: cudaError {rc}")
     launches["gather2d"] += 1
+    launches_by_channels[C] = launches_by_channels.get(C, 0) + 1
     return out

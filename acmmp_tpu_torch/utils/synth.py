@@ -1,6 +1,7 @@
 """Synthetic scenes with known geometry — the port's copy of
-``look_at_camera``, ``textured_plane_scene`` and ``textured_relief_scene``
-from ``acmmp_tpu/utils/synth.py`` (numpy only), and ``write_dense_folder``,
+``look_at_camera``, ``textured_plane_scene``, ``textured_relief_scene`` and
+``relief_gt_points`` from ``acmmp_tpu/utils/synth.py`` (numpy only), and
+``write_dense_folder``,
 which puts a scene on disk as a dense folder. The scene is generated in memory
 with an analytic texture, so every view is photo-consistent by
 construction and PatchMatch must recover the exact plane depth."""
@@ -147,6 +148,39 @@ def textured_relief_scene(
             # depth = z-coordinate in the camera frame
             gt_depth0 = ((p - center) @ cam.R.T)[..., 2].astype(np.float32)
     return images, cams, gt_depth0
+
+
+def relief_gt_points(cams, width, height, base_z=5.0, amp=0.35,
+                     samples=(960, 1280)):
+    """Dense analytic ground-truth points of the relief surface
+    (textured_relief_scene's z_surf law) over every view's frustum
+    footprint — the GT side of the DTU-protocol quality artifacts
+    (tools/fullscale_quality.py). Per-view Newton ray casts of
+    samples = (rows, cols) rays, concatenated; eval reduce_points dedups
+    the overlap."""
+
+    def z_surf(xw, yw):
+        return base_z + amp * (np.sin(1.1 * xw) * np.cos(0.9 * yw)
+                               + 0.5 * np.sin(2.3 * xw + 1.0))
+
+    gt_parts = []
+    for cam in cams:
+        xs = np.linspace(0, width - 1, samples[1])
+        ys = np.linspace(0, height - 1, samples[0])
+        Xg, Yg = np.meshgrid(xs, ys)
+        dirs = np.stack([(Xg - cam.K[0, 2]) / cam.K[0, 0],
+                         (Yg - cam.K[1, 2]) / cam.K[1, 1],
+                         np.ones_like(Xg)], axis=-1)
+        dirs_w = dirs @ cam.R
+        center = -cam.R.T @ cam.t
+        s = (base_z - center[2]) / dirs_w[..., 2]
+        for _ in range(30):
+            p = center[None, None] + s[..., None] * dirs_w
+            g = p[..., 2] - z_surf(p[..., 0], p[..., 1])
+            s = s - 0.8 * g / dirs_w[..., 2]
+        gt_parts.append(
+            (center[None, None] + s[..., None] * dirs_w).reshape(-1, 3))
+    return np.concatenate(gt_parts)
 
 
 def write_dense_folder(dense: str, images, cams) -> str:

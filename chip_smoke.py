@@ -110,8 +110,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      every K, and geom.cu's view loop to 6 MUFU.RCP per (hypothesis,
      view), its stores (one 16-byte store per four views where V is a
      multiple of 4) and no local memory;
+  10. (run after 8b) the rest of the CLI and the DTU method grid, through
+     acmmp_tpu_torch.cli.main: make-synthetic --relief (MADE_VIEWS views
+     at 320x240) byte-equal to the library call, the grid's 49-view
+     relief scan on the full-scale tool's convergent rig with its
+     ground-truth PLY (relief_gt_points), and analyze-dtu --cam_counts
+     3,5 --gt_root on the card, launch counts set to 0 just before it and
+     read just after: every subset has its five variant PLYs (no_prior,
+     x2, boost_1, boost_single, full_prior) above GRID_MIN_FUSED_SHARE of
+     a view, 12 finite metrics each, the paired tests printed, 13 ZNCC
+     launches per solve with the seeded solves among them, sample.cu
+     launches by width (counted by its wrapper) adding up to its launches
+     and C=8 in x2 and boost_1 only; then select-cams, eval-dtu --json
+     and make-priors through the CLI equal to the grid's folder and the
+     library calls;
+  10b. fullscale_quality at its defaults (1280x960, 6 views, the default
+     random law): its 12 metrics at FULLSCALE_BARS, its walls (the
+     evaluation on a line of its own) and its launch counts;
 then the kernel table as one JSON line, the card line and the result
-line.
+line. Lines near the start say which of cv2, matplotlib, PIL and scipy
+import here, and how long read_png takes on 1600x1200 normal priors that
+OpenCV wrote, each held to OpenCV's decode (information: the times are
+not bounded).
 
 Imports nothing of JAX. Exits non-zero without a result when there is no
 CUDA device or when the acmmp_tpu_torch package is not beside it.
@@ -120,6 +140,7 @@ CUDA device or when the acmmp_tpu_torch package is not beside it.
 from __future__ import annotations
 
 import dataclasses
+import filecmp
 import json
 import logging
 import math
@@ -252,14 +273,59 @@ PROBE_TPU_KERNEL = {"taa_i32_axis1": "tools/mosaic_probe.py:36",
                     "take_select_i32": "tools/prop_ablate.py:451",
                     "take_select_f32": "tools/prop_ablate.py:455"}
 
+# phase 10: the DTU method grid through the CLI on a 49-view relief scan
+# at 320x240 (as many views as DTU_CAM_SETS names), camera subsets of 3
+# and 5. The scan's rig is the full-scale tool's (f = 140 W / 96, spread
+# 1.2, convergent): make-synthetic's relief rig is parallel, so
+# select-cams' 3-degree window would pair none of its views. Each fused
+# variant must hold at least GRID_MIN_FUSED_SHARE of one view's pixels:
+# fusion's dynamic consistency (exp(-(err + 200 rdd + 10 angle)) above 0.3
+# per consistent view) keeps few of this scene's pixels, so the 3-camera
+# plain variant fused 8,239 points on the CPU (0.107 of a view; 42,517
+# with that test off); a broken solve or fusion lands near 0
+GRID_SHAPE = (320, 240, 49)         # width, height, views
+MADE_VIEWS = 4                  # make-synthetic, held to the library call
+GRID_CAM_COUNTS = (3, 5)
+GRID_MIN_FUSED_SHARE = 1 / 16
+# each variant of analyze_scene: its pipeline's output_dir and its PLY
+GRID_VARIANTS = {"no_prior": ("ACMMP", "ACMMP_no_prior.ply"),
+                 "x2": ("ACMMP2", "ACMMP_x2.ply"),
+                 "boost_1": ("ACMMP_BOOST", "acmmp_boost_1.ply"),
+                 "boost_single": ("ACMMP_BOOST_SINGLE",
+                                  "acmmp_boost_single.ply"),
+                 "full_prior": ("ACMMP_full_prior", "ACMMP_full_prior.ply")}
+# phase 10b: fullscale_quality at its defaults (1280x960, 6 views, default
+# random law) held to about 0.8x round 5's default-law acc2 and cmp2
+# (0.4811, 0.4347; QUALITY_fullscale_r05.json) and 1.25x its acc_mean
+# (5.61 mm): a broken port lands near 0
+FULLSCALE_BARS = {"acc2": 0.38, "cmp2": 0.35, "acc_mean": 7.0}
+
 TPU_KERNEL = {1: "acmmp_tpu/ops/pallas_ncc.py:108",
               2: "acmmp_tpu/ops/pallas_ncc.py:542",
               3: "acmmp_tpu/ops/pallas_ncc.py:542",
               8: "acmmp_tpu/ops/pallas_ncc.py:542"}
 
 
+# (phase label, when it started), for the walls by phase
+PHASE_STARTS = []
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+def mark(label):
+    """The phase `label` starts now."""
+    PHASE_STARTS.append((label, time.perf_counter()))
+
+
+def phase_walls(end):
+    """Seconds from each phase's mark to the next one's, summed by label."""
+    walls = {}
+    for (label, t), (_, t_next) in zip(
+            PHASE_STARTS, PHASE_STARTS[1:] + [("end", end)]):
+        walls[label] = walls.get(label, 0.0) + t_next - t
+    return ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
 
 
 def card_line():
@@ -644,7 +710,7 @@ def run_pipeline_phase(scene, dev, work, ref_err):
             ply_name=f"dual_{backend}.ply", device=dev)
         with open(path, "rb") as f:
             dual[backend] = (f.read(), time.perf_counter() - t0,
-                             cuda_sample.launches["gather2d"])
+                             cuda_sample.launches_by_channels.get(8, 0))
     dual_pts = read_ply(os.path.join(second, "dual_auto.ply"))[0]
 
     log(f"  dense folder written in {write_s:.2f} s; pipeline wall "
@@ -1713,6 +1779,355 @@ def run_ablation_phase(dev, big, random8):
     return rows
 
 
+def module_versions(names):
+    """'name version' (or 'name missing') of each host module."""
+    import importlib
+
+    out = []
+    for name in names:
+        try:
+            mod = importlib.import_module(name)
+        except ImportError:
+            out.append(f"{name} missing")
+        else:
+            out.append(f"{name} {getattr(mod, '__version__', '?')}")
+    return out
+
+
+def png_decode_times():
+    """read_png's wall on a 1600x1200 16-bit normal prior that OpenCV
+    wrote, with its default row filter and with each filter it offers,
+    each decode held to OpenCV's own (information: not bounded)."""
+    try:
+        import cv2
+    except ImportError:
+        return ["not measured (no cv2)"]
+    from acmmp_tpu_torch.io.priors import read_png
+
+    h, w = 1200, 1600
+    rng = np.random.default_rng(0)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    n = np.stack([np.sin(xs / 200) + 0.05 * rng.standard_normal((h, w)),
+                  np.cos(ys / 150), np.ones_like(xs)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    arr = np.clip((n + 1.0) * 32768.0, 0, 65535).astype(np.uint16)
+    filters = [("default", [])] + [
+        (name, [cv2.IMWRITE_PNG_FILTER, getattr(cv2, f"IMWRITE_PNG_{name}")])
+        for name in ("FILTER_PAETH", "FILTER_AVG", "ALL_FILTERS")
+        if hasattr(cv2, "IMWRITE_PNG_FILTER")]
+    out = []
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "n.png")
+        for name, flags in filters:
+            assert cv2.imwrite(path, arr, flags), name
+            t0 = time.perf_counter()
+            got = read_png(path)
+            sec = time.perf_counter() - t0
+            np.testing.assert_array_equal(
+                got, cv2.imread(path, cv2.IMREAD_UNCHANGED))
+            np.testing.assert_array_equal(got, arr)
+            out.append(f"{name} {sec:.3f} s")
+    return out
+
+
+class SolveCounter:
+    """Counts the problems solved through BatchedSolver.solve_batch (all,
+    and in seeded mode) while it is entered."""
+
+    def __enter__(self):
+        from acmmp_tpu_torch.pipeline.batched import BatchedSolver
+
+        self.cls, self.orig = BatchedSolver, BatchedSolver.solve_batch
+        self.solves = self.seeded = 0
+        counter = self
+
+        def solve_batch(solver, inputs_list, keys_list, mode):
+            counter.solves += len(inputs_list)
+            counter.seeded += len(inputs_list) if mode.seeded else 0
+            return counter.orig(solver, inputs_list, keys_list, mode)
+
+        BatchedSolver.solve_batch = solve_batch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.solve_batch = self.orig
+
+
+def reset_counts():
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, cuda_sample
+
+    for c in (cuda_ncc, cuda_geom, cuda_sample):
+        c.reset_launch_counts()
+
+
+def read_counts():
+    """The launch counts of the main path's kernels: zncc.cu by K (8-bit
+    sources), geom.cu by K, sample.cu in all and by the maps' channel
+    count C."""
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, cuda_sample
+
+    return {"zncc": dict(cuda_ncc.launches), "geom": dict(cuda_geom.launches),
+            "sample": dict(cuda_sample.launches),
+            "sample_c": dict(cuda_sample.launches_by_channels)}
+
+
+def assert_sampler_widths(counts, what):
+    """sample.cu's launches by width add up to its launches in all."""
+    assert sum(counts["sample_c"].values()) == \
+        counts["sample"]["gather2d"], (what, counts["sample"],
+                                       counts["sample_c"])
+
+
+def assert_13_per_solve(counts, solves, what):
+    """13 zncc.cu launches per solve: one K=1 init, then K=8, 3 and 2 in
+    each of the 4 half-sweeps."""
+    z = counts["zncc"]
+    assert solves > 0 and z[1] == solves and z[8] == z[3] == z[2] == 4 * \
+        solves, (what, z, solves)
+
+
+def run_dtu_grid_phase(work, dev):
+    """Phase 10: the rest of the CLI and the DTU method grid on the card.
+    Through acmmp_tpu_torch.cli.main in this process: make-synthetic
+    --relief at a few views against the library call; the grid's scan
+    (49 views of the same surface on the full-scale tool's convergent rig)
+    with its ground-truth PLY from relief_gt_points; analyze-dtu over
+    camera subsets 3 and 5 with the GT root (five variants each, the
+    seeded re-runs among them); then, on the 3-camera subset, select-cams,
+    eval-dtu --json and make-priors against what the grid made and the
+    library calls. Launch counts are set to 0 just before analyze-dtu and
+    read just after; each variant's pipeline is timed and counted on its
+    own."""
+    import contextlib
+    import io
+
+    import torch
+
+    from acmmp_tpu_torch import cli
+    from acmmp_tpu_torch.eval.dtu import METRIC_NAMES, evaluate_ply
+    from acmmp_tpu_torch.experiments import dtu_analysis
+    from acmmp_tpu_torch.experiments.fixtures import (
+        write_synthetic_dense_folder)
+    from acmmp_tpu_torch.experiments.prior_sampler import (
+        write_priors_from_points)
+    from acmmp_tpu_torch.io import read_ply, write_ply
+    from acmmp_tpu_torch.io.dense_folder import load_cams
+    from acmmp_tpu_torch.io.priors import read_png
+    from acmmp_tpu_torch.utils.synth import (relief_gt_points,
+                                             textured_relief_scene,
+                                             write_dense_folder)
+
+    W, H, V = GRID_SHAPE
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        assert rc == 0, (argv, rc)
+        return buf.getvalue()
+
+    def same_tree(a, b, subs):
+        """The same files, byte for byte, under each of `subs` of `a` and
+        `b`; returns how many."""
+        def files(root):
+            return sorted(os.path.relpath(os.path.join(d, f), root)
+                          for sub in subs
+                          for d, _, fs in os.walk(os.path.join(root, sub))
+                          for f in fs)
+
+        names = files(a)
+        assert names == files(b), (names, files(b))
+        for n in names:
+            assert filecmp.cmp(os.path.join(a, n), os.path.join(b, n),
+                               shallow=False), n
+        return len(names)
+
+    t0 = time.perf_counter()
+    made, lib = os.path.join(work, "made"), os.path.join(work, "made_lib")
+    run_cli(["make-synthetic", made, "--relief", "--n_views",
+             str(MADE_VIEWS), "--width", str(W), "--height", str(H)])
+    write_synthetic_dense_folder(lib, n_views=MADE_VIEWS, width=W, height=H,
+                                 relief=True)
+    n_made = same_tree(made, lib, ("",))
+    log(f"phase 10: make-synthetic --relief wrote {MADE_VIEWS} views at "
+        f"{W}x{H} ({n_made} files), byte-equal to the library call, in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    images, cams, _ = textured_relief_scene(
+        n_views=V, width=W, height=H, f=140.0 * W / 96.0, spread=1.2,
+        converge=True)
+    scans, out_root, gt_root = (os.path.join(work, d)
+                                for d in ("scans", "grid", "gt"))
+    write_dense_folder(os.path.join(scans, "relief"), images, cams)
+    used = sorted({v for n in GRID_CAM_COUNTS
+                   for v in dtu_analysis.DTU_CAM_SETS[n]})
+    gt = relief_gt_points([cams[v] for v in used], W, H, samples=(H, W))
+    os.makedirs(gt_root)
+    write_ply(os.path.join(gt_root, "relief.ply"), gt.astype(np.float32),
+              np.zeros(gt.shape, np.float32), np.zeros(gt.shape, np.uint8))
+    log(f"  grid scan {V} views on the convergent rig and its GT "
+        f"({len(gt)} points over views {used}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # each variant's pipeline: wall, launches by kernel and sampler width,
+    # solves (seeded among them)
+    per_run, tables = [], []
+    orig_pipeline = dtu_analysis.run_pipeline
+    orig_grid = dtu_analysis.analyze_dtu_scans
+
+    def timed_pipeline(dense, cfg, device=None):
+        before = read_counts()
+        with SolveCounter() as sc:
+            t = time.perf_counter()
+            ply = orig_pipeline(dense, cfg, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        after = read_counts()
+        per_run.append({
+            "dense": os.path.basename(dense), "output_dir": cfg.output_dir,
+            "wall": wall, "solves": sc.solves, "seeded": sc.seeded,
+            "zncc": {k: after["zncc"][k] - before["zncc"][k]
+                     for k in after["zncc"]},
+            "geom": {k: after["geom"][k] - before["geom"][k]
+                     for k in after["geom"]},
+            "sample": {c: after["sample_c"].get(c, 0)
+                       - before["sample_c"].get(c, 0)
+                       for c in SAMPLE_CHANNELS},
+            "gather2d": after["sample"]["gather2d"]
+            - before["sample"]["gather2d"]})
+        return ply
+
+    def kept_grid(*a, **kw):
+        tables.append(orig_grid(*a, **kw))
+        return tables[-1]
+
+    dtu_analysis.run_pipeline = timed_pipeline
+    dtu_analysis.analyze_dtu_scans = kept_grid
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with SolveCounter() as total:
+            out = run_cli(["analyze-dtu", scans, out_root, "--cam_counts",
+                           ",".join(map(str, GRID_CAM_COUNTS)), "--gt_root",
+                           gt_root, "--device", str(dev)])
+    finally:
+        dtu_analysis.run_pipeline = orig_pipeline
+        dtu_analysis.analyze_dtu_scans = orig_grid
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    by_c = counts["sample_c"]
+    log(f"  analyze-dtu {scans} --cam_counts {GRID_CAM_COUNTS} in "
+        f"{wall:.1f} s: {total.solves} solves ({total.seeded} seeded), "
+        f"launches {counts}")
+    for line in out.strip().splitlines():
+        log(f"  {line}")
+    assert_13_per_solve(counts, total.solves, "phase 10")
+    assert total.seeded > 0, total.seeded
+    assert all(v > 0 for k in ("zncc", "geom") for v in counts[k].values()), \
+        counts
+    assert_sampler_widths(counts, "phase 10")
+    assert set(by_c) == set(SAMPLE_CHANNELS), by_c
+    assert out.count(" vs ") == 2 * 10, out       # 2 metrics x 5C2 pairs
+
+    table, = tables
+    for n_cam in GRID_CAM_COUNTS:
+        dense = os.path.join(out_root, f"relief_{n_cam}_cam")
+        runs = {r["output_dir"]: r for r in per_run
+                if r["dense"] == os.path.basename(dense)}
+        for variant, (out_dir, ply_name) in GRID_VARIANTS.items():
+            r = runs[out_dir]
+            pts, _, _ = read_ply(os.path.join(dense, ply_name))
+            m = table.rows[(variant, "relief", n_cam)]
+            log(f"  {n_cam} cams {variant:12s}: wall {r['wall']:.2f} s, "
+                f"{r['solves']} solves ({r['seeded']} seeded), sampler "
+                f"C=4 {r['sample'][4]} C=8 {r['sample'][8]}, {len(pts)} "
+                f"points; " + " ".join(f"{k} {v:.4f}" for k, v in
+                                       zip(METRIC_NAMES, m)))
+            assert len(pts) >= GRID_MIN_FUSED_SHARE * W * H, (
+                n_cam, variant, len(pts))
+            assert m.shape == (12,) and np.isfinite(m).all(), (variant, m)
+            assert_13_per_solve(r, r["solves"], (n_cam, variant))
+            assert sum(r["sample"].values()) == r["gather2d"], (variant, r)
+            want_seeded = variant in ("boost_1", "boost_single",
+                                      "full_prior")
+            assert (r["seeded"] > 0) == want_seeded, (variant, r)
+            assert (r["sample"][8] > 0) == (variant in ("x2", "boost_1")), \
+                (variant, r)
+
+    # select-cams, eval-dtu --json and make-priors through the CLI against
+    # what the grid made and the library calls
+    dense = os.path.join(out_root, f"relief_{GRID_CAM_COUNTS[0]}_cam")
+    sel = os.path.join(work, "selected")
+    run_cli(["select-cams", os.path.join(scans, "relief"), sel, "--cams",
+             ",".join(map(str, dtu_analysis.DTU_CAM_SETS[
+                 GRID_CAM_COUNTS[0]]))])
+    same_tree(sel, dense, ("images", "cams"))
+    assert filecmp.cmp(os.path.join(sel, "pair.txt"),
+                       os.path.join(dense, "pair.txt"), shallow=False)
+    ply = os.path.join(dense, "ACMMP_no_prior.ply")
+    got = json.loads(run_cli(["eval-dtu", ply, "--gt",
+                              os.path.join(gt_root, "relief.ply"),
+                              "--json"]))
+    gt32, _, _ = read_ply(os.path.join(gt_root, "relief.ply"))
+    assert got == evaluate_ply(ply, gt32), got
+    np.testing.assert_array_equal(
+        [got[k] for k in METRIC_NAMES],
+        table.rows[("no_prior", "relief", GRID_CAM_COUNTS[0])])
+    a, b = os.path.join(work, "priors_cli"), os.path.join(work, "priors_lib")
+    for d in (a, b):
+        for sub in ("images", "cams"):
+            shutil.copytree(os.path.join(dense, sub), os.path.join(d, sub))
+    run_cli(["make-priors", a, "--ply", ply])
+    pts, _, _ = read_ply(ply)
+    write_priors_from_points(b, pts, load_cams(b))
+    for sub in ("depths", "normals"):
+        names = sorted(os.listdir(os.path.join(a, "priors", sub)))
+        assert names == sorted(os.listdir(os.path.join(b, "priors", sub)))
+        assert len(names) == GRID_CAM_COUNTS[0]
+        for n in names:
+            np.testing.assert_array_equal(
+                read_png(os.path.join(a, "priors", sub, n)),
+                read_png(os.path.join(b, "priors", sub, n)))
+    log(f"  select-cams, eval-dtu --json and make-priors through the CLI "
+        f"equal the grid's folder and the library calls "
+        f"({GRID_CAM_COUNTS[0]} cams)")
+    return {"counts": counts, "by_c": by_c, "solves": total.solves,
+            "seeded": total.seeded, "wall": wall, "runs": per_run}
+
+
+def run_fullscale_phase(work, dev):
+    """Phase 10b: the port's fullscale_quality at its defaults (1280x960,
+    6 views, geom_iters 2, the default random law), launch counts set to
+    0 just before and read just after; its 12 metrics held to
+    FULLSCALE_BARS."""
+    from acmmp_tpu_torch.tools import fullscale_quality
+
+    reset_counts()
+    with SolveCounter() as sc:
+        res = fullscale_quality.main(
+            ["--dense", os.path.join(work, "fullscale"), "--device",
+             str(dev), "--out", os.path.join(work, "fullscale.json")])
+    counts = read_counts()
+    m = res["metrics"]
+    log(f"phase 10b: fullscale_quality {res['shape']}, {res['views']} "
+        f"views, window {res['rand_depth_tile_window']}, min_cos "
+        f"{res['rand_normal_min_cos']} on {res['device']}: pipeline wall "
+        f"{res['pipeline_wall_s']:.2f} s, {sc.solves} solves, launches "
+        f"{counts}, {res['points']} points")
+    log(f"  scene {res['scene_s']:.2f} s, GT {res['gt_s']:.2f} s "
+        f"({res['gt_points']} points)")
+    log(f"  eval {res['eval_s']:.2f} s")
+    log("  metrics " + " ".join(f"{k} {v}" for k, v in m.items()))
+    assert_13_per_solve(counts, sc.solves, "phase 10b")
+    assert counts["sample"]["gather2d"] == res["views"], counts
+    assert all(math.isfinite(v) for v in m.values()), m
+    assert m["acc2"] >= FULLSCALE_BARS["acc2"], m
+    assert m["cmp2"] >= FULLSCALE_BARS["cmp2"], m
+    assert m["acc_mean"] <= FULLSCALE_BARS["acc_mean"], m
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1720,6 +2135,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_script = time.perf_counter()
+    mark("setup")
     card = card_line()
     log(f"card: {card}")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1739,8 +2155,14 @@ def main() -> int:
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    # information only: the host modules the CLI's subcommands may use
+    log("host modules: " + ", ".join(
+        module_versions(("cv2", "matplotlib", "PIL", "scipy"))))
+    log("read_png on OpenCV's 1600x1200 normal priors, by row filter: "
+        + ", ".join(png_decode_times()))
 
     # ---- phase 2: build ----
+    mark("2")
     t0 = time.perf_counter()
     names = _build.all_kernels()
     _build.build(names)
@@ -1859,6 +2281,7 @@ def main() -> int:
         assert bitwise, label
 
     # ---- phase 3: kernel against plain ----
+    mark("3")
     log("phase 3: kernel vs plain, 320x240, 4 sources (+1 padded slot)")
     small, plane_z, _ = scene(320, 240, 4, num_views_pad=5)
     assert int(small.view_mask.sum()) == 4 and small.src_imgs.shape[0] == 5
@@ -1902,6 +2325,7 @@ def main() -> int:
     del coarse_in
 
     # ---- phase 3e: float sources through the kernel ----
+    mark("3e")
     def real_share(src):
         """The share of source pixels that are not integers."""
         return (src != torch.round(src)).float().mean().item()
@@ -2023,6 +2447,7 @@ def main() -> int:
     assert share5_f >= SOLVE_MIN_SHARE, share5_f
 
     # ---- phase 3c: geom kernel against plain ----
+    mark("3c")
     geom_err = {k: 0.0 for k in cuda_geom.SUPPORTED_K}
 
     def geom_rig(width, height, n_src, band_rows, num_views_pad=None):
@@ -2129,9 +2554,11 @@ def main() -> int:
         del rig, smooth, band, off, rw, rx, stacks
 
     # ---- phase 3f: batched launches against single-view launches ----
+    mark("3f")
     batched_err = run_batched_kernels_phase(dev)
 
     # ---- phase 3d: the fusion sampler against its plain version ----
+    mark("3d")
     from acmmp_tpu_torch.engine import fusion
     from acmmp_tpu_torch.ops import cuda_sample
     from acmmp_tpu_torch.ops import sample as sample_ops
@@ -2219,6 +2646,7 @@ def main() -> int:
                            "projected field, 10% garbage lanes")
 
     # ---- phase 4: solve-level, kernel vs plain, same key ----
+    mark("4")
     log("phase 4: 320x240 solve, kernel vs plain, same key")
     small4, _, _ = scene(320, 240, 4)
     (share, share5), (noise, noise5), dk = solve_agreement(small4, params,
@@ -2231,6 +2659,7 @@ def main() -> int:
     assert share >= SOLVE_MIN_SHARE, share
 
     # ---- phase 5: the main path at full width ----
+    mark("5")
     def full_width_solve(inputs, kparams, plane):
         """The 1600x1184 / 8-source solve through the kernel, warm-up then
         timed with the launch counts reset just before; returns the
@@ -2279,10 +2708,12 @@ def main() -> int:
     counts_f32 = full_width_solve(big_f, f_params, plane_z_big_f)
 
     # ---- phase 5c: the batched photometric solve at full width ----
+    mark("5c")
     batched_table, _ = run_batched_solve_phase(
         {f"{w}x{h}": sc for (w, h), sc in chain_scenes.items()}, dev)
 
     # ---- phase 6: per-launch times beside the plain version and bound ----
+    mark("6")
     def bound(inputs, K, Hg, W, src_bytes):
         """(bound ms, what bounds it, tap evaluations) of one ZNCC launch:
         the FP32 operations at the FP32 peak, or the bytes it must move
@@ -2494,6 +2925,7 @@ def main() -> int:
             del maps, rr, cc, valid
 
     # ---- phase 9: the ZNCC cost decomposition and the lane probes ----
+    mark("9")
     # phase 6's random K = 8 field at 1600x1184 (same key), packed
     random8 = parity.pack_rows_c(random_planes(big, 8, 48, 0.125, 0.25),
                                  0).contiguous()
@@ -2501,6 +2933,7 @@ def main() -> int:
     del random8
 
     # ---- phase 7: the per-view two-scale chain at full width ----
+    mark("7")
     chain = run_chain({size: ([images[i] for i in CHAIN_VIEWS],
                               [cams[i] for i in CHAIN_VIEWS], pz)
                        for size, (images, cams, pz) in chain_scenes.items()},
@@ -2508,6 +2941,7 @@ def main() -> int:
     geom_counts = chain["geom_launches"]
 
     # ---- phase 8: the pipeline at full width through the disk ----
+    mark("8")
     fine_scene = chain_scenes[(1600, 1184)]
     log(f"phase 8: run_pipeline on a {len(fine_scene[0])}-view 1600x1184 "
         f"dense folder, PipelineConfig(), texture scale "
@@ -2516,9 +2950,17 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     pipe = run_pipeline_phase(fine_scene, dev, work, ref_err)
     # ---- phase 8b: the same folder through the batched executor ----
+    mark("8b")
     log(f"phase 8b: run_pipeline on phase 8's dense folder, "
         f"PipelineConfig(view_batch=4)")
     pipe_b = run_batched_pipeline_phase(pipe["dense"], fine_scene, dev, pipe)
+    shutil.rmtree(pipe["dense"])
+    # ---- phase 10: the rest of the CLI and the DTU method grid ----
+    mark("10")
+    run_dtu_grid_phase(work, dev)
+    # ---- phase 10b: full-scale quality ----
+    mark("10b")
+    run_fullscale_phase(work, dev)
     shutil.rmtree(work)
     n_sweeps = 2 * params.max_iterations
     n_views = len(fine_scene[0])
@@ -2577,7 +3019,9 @@ def main() -> int:
             "bound_by": b_by, "library_ms": None})
     rows += ablation_rows
     assert all(math.isfinite(r["ms"]) for r in rows)
-    log(f"chip_smoke wall {time.perf_counter() - t_script:.1f} s")
+    end = time.perf_counter()
+    log(f"chip_smoke wall {end - t_script:.1f} s; walls by phase (s): "
+        f"{phase_walls(end)}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

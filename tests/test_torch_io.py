@@ -149,7 +149,8 @@ def test_multiscale_settings_equal(tmp_path):
 
 def test_seed_planes_match_on_jax_pngs(tmp_path):
     """Prior PNGs written by the JAX package decode to the same planes
-    (1e-6); the port's writer writes the same PNG bytes."""
+    (1e-6); the port's writer writes the same depth PNG bytes, and normal
+    PNGs (its own codec, not OpenCV) that decode to the same arrays."""
     images, cams, plane_z = textured_plane_scene(n_views=2, width=32,
                                                  height=24)
     rng = np.random.default_rng(4)
@@ -160,9 +161,12 @@ def test_seed_planes_match_on_jax_pngs(tmp_path):
     for i in range(2):
         jpriors.write_prior_pngs(jdense, i, depth, normal, 2.0, 10.0)
         tpriors.write_prior_pngs(tdense, i, depth, normal, 2.0, 10.0)
-    for sub in ("depths", "normals"):
-        assert _bytes(os.path.join(jdense, "priors", sub, "00000001.png")) \
-            == _bytes(os.path.join(tdense, "priors", sub, "00000001.png"))
+    def png(dense, sub):
+        return os.path.join(dense, "priors", sub, "00000001.png")
+
+    assert _bytes(png(jdense, "depths")) == _bytes(png(tdense, "depths"))
+    np.testing.assert_array_equal(tpriors.read_png(png(jdense, "normals")),
+                                  tpriors.read_png(png(tdense, "normals")))
     assert tpriors.priors_available(jdense, 2)
     assert not tpriors.priors_available(jdense, 3)
     for rows, cols in ((24, 32), (12, 16)):

@@ -42,8 +42,15 @@ assert "acmmp_tpu_torch.ops.cuda_sample" in sys.modules
 for m in ("io.dmb", "io.ply", "io.priors", "utils.log", "engine.fusion",
           "pipeline.scheduler", "pipeline.batched", "parallel.sharding",
           "cli", "tools.prop_ablate",
-          "tools.mosaic_probe", "ops.cuda_ablate", "ops.cuda_probes"):
+          "tools.mosaic_probe", "ops.cuda_ablate", "ops.cuda_probes",
+          "io.colmap", "eval.dtu", "eval.obsmask", "eval.stats",
+          "experiments.fixtures", "experiments.select_cams",
+          "experiments.prior_sampler", "experiments.dtu_analysis",
+          "experiments.visualize", "tools.fullscale_quality",
+          "tools.rand_window_ab"):
     assert "acmmp_tpu_torch." + m in sys.modules, m
+# the card machine may lack both: importing the package needs neither
+assert "matplotlib" not in sys.modules and "cv2" not in sys.modules
 """
 
 
