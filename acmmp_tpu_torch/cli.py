@@ -18,8 +18,11 @@ reference's executables and scripts:
 The subcommands that solve (``reconstruct``, ``fuse``, ``analyze-dtu``)
 run on CUDA unless ``--device`` says otherwise; the others are host code.
 ``--view_batch N`` solves N reference views per launch stream
-(pipeline/batched.py). ``--mesh`` is not ported (ROADMAP Queue 1
-item 6)."""
+(pipeline/batched.py). ``reconstruct --mesh`` shards each batch of views
+over every visible CUDA device, and the rows of a view above
+``tile_pixels`` (parallel/); it raises without a CUDA device. A mesh of
+a repeated device is built in code (parallel.make_view_mesh(devices=...)),
+not on the command line."""
 
 from __future__ import annotations
 
@@ -106,7 +109,12 @@ def main(argv=None):
                          "larger than this many pixels (0 = no bound)")
     pr.add_argument("--view_batch", type=int, default=1,
                     help="reference views solved per launch stream "
-                         "(the batched executor)")
+                         "(the batched executor); --mesh shards the "
+                         "batch over all local devices")
+    pr.add_argument("--mesh", action="store_true",
+                    help="shard view batches over a device mesh: every "
+                         "visible CUDA device (raises without one; "
+                         "--device is then not used)")
     pr.add_argument("--debug_images", action="store_true",
                     help="write approved_pixels_cam_N.png and "
                          "triangulation.png debug artifacts")
@@ -234,7 +242,12 @@ def main(argv=None):
                 cfg, planar_prior_max_pixels=args.planar_prior_max_pixels)
         if args.view_batch > 1:
             cfg = dataclasses.replace(cfg, view_batch=args.view_batch)
-        print(run_pipeline(dense, cfg, device=args.device))
+        if args.mesh:
+            from acmmp_tpu_torch.parallel import make_view_mesh
+
+            print(run_pipeline(dense, cfg, mesh=make_view_mesh()))
+        else:
+            print(run_pipeline(dense, cfg, device=args.device))
     elif args.cmd == "fuse":
         from acmmp_tpu_torch.engine.fusion import (run_fusion,
                                                    run_prior_aware_fusion)

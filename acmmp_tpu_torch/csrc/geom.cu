@@ -14,9 +14,12 @@
 //   b   = projection of Xs into the reference camera;
 // and it writes min(|p - b|, max_cost), or max_cost where sd <= 0, where
 // the error is NaN, or for v >= n_views (a padded slot: nothing is read).
-// Packed pixel (i, j) is full-grid row 2i + (off0 + j) % 2
-// (pallas_geom.py:100-105); the port's solver has no tiles, so the grid's
-// origin is (0, 0).
+// The grid may be a tile of a larger image (parallel/tiles.py): its pixel
+// (r, j) lies at (y0 + r, x0 + j) of the image, the tile origin (y0, x0)
+// (pallas_geom.py:55, 74-81). Packed pixel (i, j) is the grid's row
+// 2i + (off0 + j) % 2 (pallas_geom.py:100-105), so at image row
+// y0 + 2i + (off0 + j) % 2. The first design (below) takes only the origin
+// (0, 0).
 //
 // Arithmetic: f32, in the order of the plain version (ops/geom.py, the
 // JAX oracle's staged form: world_point -> project -> nearest read ->
@@ -194,7 +197,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) geom_kernel(
     const ViewCounts n_views,           // [B]
     float* __restrict__ out,            // [K, B, npix, V]
     int K, int B, int V, int Hg, int W, int Hs, int Ws, int row_pack_off,
-    float max_cost) {
+    int y0, int x0, float max_cost) {
   extern __shared__ float s_consts[];   // consts, staged once per block
   // view b of the batch: its cameras, depth maps and source count
   const int b = kBatch ? static_cast<int>(blockIdx.y) : 0;
@@ -215,8 +218,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) geom_kernel(
   const int i = p / W;
   const int j = p - i * W;
   const int rr = row_pack_off >= 0 ? 2 * i + ((row_pack_off + j) & 1) : i;
-  const float yy = (float)rr;
-  const float xx = (float)j;
+  // the image coordinates of the pixel: exact in f32 below 2^24
+  const float yy = (float)(y0 + rr);
+  const float xx = (float)(x0 + j);
   const float* ref = s_consts;
 
   // the k part: geometry.depth_from_plane, then the reference world point
@@ -275,7 +279,7 @@ cudaError_t by_shape(int V, int B, F f) {
 cudaError_t launch(int K, int B, const void* planes, const void* depths,
                    const void* consts, const ViewCounts& n_views, void* out,
                    int V, int Hg, int W, int Hs, int Ws, int row_pack_off,
-                   float max_cost, cudaStream_t stream) {
+                   int y0, int x0, float max_cost, cudaStream_t stream) {
   const int npix = Hg * W;
   const size_t smem = smem_bytes(V);
   const dim3 grid(((npix + kBlock - 1) / kBlock) * K, B);
@@ -289,8 +293,8 @@ cudaError_t launch(int K, int B, const void* planes, const void* depths,
     kernel<<<grid, kBlock, smem, stream>>>(
         static_cast<const float4*>(planes), static_cast<const float*>(depths),
         static_cast<const float*>(consts), n_views,
-        static_cast<float*>(out), K, B, V, Hg, W, Hs, Ws, row_pack_off,
-        max_cost);
+        static_cast<float*>(out), K, B, V, Hg, W, Hs, Ws, row_pack_off, y0,
+        x0, max_cost);
     return cudaGetLastError();
   });
 }
@@ -428,21 +432,22 @@ cudaError_t launch_first(const void* planes, const void* depths,
 // Plain C entry points (loaded with ctypes). Each launch returns
 // cudaGetLastError() after it, or cudaErrorInvalidValue for an
 // unsupported K (the redesign takes any K >= 1 and a batch of 1 to
-// kMaxBatch views, n_views pointing at their B source counts on the host;
-// the first design is single-view, built for the solver's 1, 5 and 8).
+// kMaxBatch views, n_views pointing at their B source counts on the host,
+// and the grid's tile origin (y0, x0); the first design is single-view at
+// the origin (0, 0), built for the solver's 1, 5 and 8).
 extern "C" int acmmp_geom_launch(int K, int B, const void* planes,
                                  const void* depths, const void* consts,
                                  const int* n_views, void* out, int V,
                                  int Hg, int W, int Hs, int Ws,
-                                 int row_pack_off, float max_cost,
-                                 void* stream) {
+                                 int row_pack_off, int y0, int x0,
+                                 float max_cost, void* stream) {
   if (K < 1 || V < 1 || B < 1 || B > kMaxBatch)
     return static_cast<int>(cudaErrorInvalidValue);
   ViewCounts counts = {};
   for (int b = 0; b < B; ++b) counts.n[b] = n_views[b];
   return static_cast<int>(launch(K, B, planes, depths, consts, counts, out,
-                                 V, Hg, W, Hs, Ws, row_pack_off, max_cost,
-                                 static_cast<cudaStream_t>(stream)));
+                                 V, Hg, W, Hs, Ws, row_pack_off, y0, x0,
+                                 max_cost, static_cast<cudaStream_t>(stream)));
 }
 
 // The first design, for chip_smoke.py's bitwise check and timing in turns

@@ -30,14 +30,17 @@ its own key (keys.KeyBatch). A batch issues the launches of one solve,
 each doing B views' work, and each view gets what its own solve gets.
 The stage functions take a batch; ``one_view`` runs one of them on a
 single view as the batch of one, through zero-copy views, and
-``run_patchmatch`` is ``run_patchmatch_batch`` so lifted.
+``run_patchmatch`` is ``run_patchmatch_batch`` so lifted. Several
+batches, each on its own device (the members of a device mesh,
+parallel/), advance in lock-step through ``run_patchmatch_members``;
+a row tile of a larger image solves at its tile origin (``_Context``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -170,18 +173,29 @@ def effective_params(params: PatchMatchParams, H: int,
 
 
 class _Context:
-    """Per-solve constants of a batch: pixel grids, the reference camera
-    and depth range shaped to broadcast over [B, H, W], the view mask
-    over [B, H, W, V], homography constants, the B true view counts (host
-    ints, read once per batch) and the kernels' per-solve preparations
-    (built on first use, CUDA tensors only)."""
+    """Per-solve constants of a batch: pixel grids in image coordinates,
+    the reference camera and depth range shaped to broadcast over
+    [B, H, W], the view mask over [B, H, W, V], homography constants, the
+    B true view counts (host ints, read once per batch) and the kernels'
+    per-solve preparations (built on first use, CUDA tensors only).
 
-    def __init__(self, inputs: SolverInputs, params: PatchMatchParams):
+    `origin` (host ints (y0, x0)) places the grid in a larger image: its
+    pixel (r, c) is image pixel (y0 + r, x0 + c), as a row tile of
+    parallel/tiles.py is. Pixel grids, the checkerboard parity, the
+    random draws (keyed on image coordinates) and both kernels then see
+    image coordinates; (0, 0), the default, is the whole image."""
+
+    def __init__(self, inputs: SolverInputs, params: PatchMatchParams,
+                 origin=(0, 0)):
         B, H, W = inputs.ref_img.shape
         dev = inputs.ref_img.device
         self.inputs = inputs
         self.params = params
+        self.origin = (int(origin[0]), int(origin[1]))
         self.x, self.y = geo.pixel_grid(H, W, device=dev)
+        if self.origin != (0, 0):
+            self.y = self.y + float(self.origin[0])
+            self.x = self.x + float(self.origin[1])
         self.black = ((self.x.long() + self.y.long()) % 2) == 0
         self.cam = geo.insert_dims(inputs.ref_cam, 1, 2)
         self.dmin = inputs.depth_min.reshape(B, 1, 1)
@@ -192,6 +206,15 @@ class _Context:
         self.use_kernel = ncc_ops.use_kernel(params, inputs.ref_img)
         self._preps = {}
         self._geom_prep = None
+
+    def row_pack_off(self, parity_odd: int) -> int:
+        """off0 of the active parity's packed rows (ops/parity.py): 0 if
+        the grid's pixel (0, 0) is of that parity, else 1."""
+        return (parity_odd + self.origin[0] + self.origin[1]) % 2
+
+    def _origin_arg(self, origin=None):
+        origin = self.origin if origin is None else tuple(origin)
+        return None if origin == (0, 0) else origin
 
     def prep(self, off0: Optional[int]):
         if not self.use_kernel:
@@ -213,17 +236,20 @@ class _Context:
         offset off0."""
         inp = self.inputs
         planes = planes.contiguous()
+        origin = self._origin_arg()
         if off0 is None:
             return ncc_ops.multiview_zncc(
                 inp.ref_img, inp.src_imgs, self.vg, planes, self.params,
-                n_views=self.n_views, prep=self.prep(None))
+                origin=origin, n_views=self.n_views, prep=self.prep(None))
         return ncc_ops.multiview_zncc_packed(
             inp.ref_img, inp.src_imgs, self.vg, planes, self.params, off0,
-            n_views=self.n_views, prep=self.prep(off0))
+            origin=origin, n_views=self.n_views, prep=self.prep(off0))
 
-    def geom(self, planes, off0: Optional[int] = None):
+    def geom(self, planes, off0: Optional[int] = None, origin=None):
         """Per-view geometric costs of `planes` on the full grid (off0
-        None) or the parity-packed half grid of offset off0."""
+        None) or the parity-packed half grid of offset off0, at the
+        grid's origin or at `origin` (a grid of other rows of the same
+        image)."""
         inp = self.inputs
         if self.use_kernel and self._geom_prep is None:
             from acmmp_tpu_torch.ops import cuda_geom
@@ -233,17 +259,20 @@ class _Context:
         return geom_ops.geom_consistency_cost(
             inp.ref_cam, inp.src_cams, inp.src_depths, planes.contiguous(),
             self.params, row_pack_off=off0, n_views=self.n_views,
-            prep=self._geom_prep)
+            prep=self._geom_prep, origin=self._origin_arg(origin))
 
 
 # ---------------------------------------------------------------------------
 # initialization (RandomInitialization, ACMMP.cu:609-705)
 # ---------------------------------------------------------------------------
 
-def _init_state(inputs: SolverInputs, params: PatchMatchParams, mode: Mode,
-                key: keys.KeyBatch, ctx: _Context) -> SolverState:
-    cam = ctx.cam
-    x, y = ctx.x, ctx.y
+def init_planes(inputs: SolverInputs, params: PatchMatchParams, mode: Mode,
+                key: keys.KeyBatch, cam: geo.Camera, x, y, dmin,
+                dmax) -> torch.Tensor:
+    """The init's plane field [B, H, W, 4] on the grid (x, y) (image
+    coordinates) of `inputs`' row fields: the reference's four init
+    branches by `mode`. `cam`, `dmin` and `dmax` broadcast over
+    [B, H, W]."""
     if mode.seeded:
         planes = inputs.seed_planes
     elif mode.planar_prior:
@@ -271,9 +300,16 @@ def _init_state(inputs: SolverInputs, params: PatchMatchParams, mode: Mode,
                                              n_cam)
     else:
         planes = samp_ops.random_plane(
-            key, cam, x, y, ctx.dmin, ctx.dmax,
+            key, cam, x, y, dmin, dmax,
             tile_window=params.rand_depth_tile_window,
             min_cos=params.rand_normal_min_cos)
+    return planes
+
+
+def _init_state(inputs: SolverInputs, params: PatchMatchParams, mode: Mode,
+                key: keys.KeyBatch, ctx: _Context) -> SolverState:
+    planes = init_planes(inputs, params, mode, key, ctx.cam, ctx.x, ctx.y,
+                         ctx.dmin, ctx.dmax)
     per_view = ctx.zncc(planes)
     costs, selected = ncc_ops.initial_cost_and_views(
         per_view, ctx.view_mask, params)
@@ -348,7 +384,7 @@ def _sweep(state: SolverState, inputs: SolverInputs, ctx: _Context,
     # hypotheses on the parity row-packed half grid ----
     packed = params.parity_packed and (H % 16 == 0)
     if packed:
-        off0 = parity_odd      # the active parity's row offset at (0, 0)
+        off0 = ctx.row_pack_off(parity_odd)
         pk = lambda a: parity_ops.pack_rows(a, off0)            # noqa: E731
         pkc = lambda a: parity_ops.pack_rows_c(a, off0)         # noqa: E731
     else:
@@ -592,6 +628,38 @@ def one_view(fn, *args):
     return view_of(fn(*(lift(a) for a in args)), 0)
 
 
+def run_patchmatch_members(batches: Sequence[SolverInputs],
+                           keys_list: Sequence[keys.KeyBatch],
+                           params: PatchMatchParams,
+                           mode: Mode = Mode()) -> List[SolverOutputs]:
+    """Full PatchMatch solves of several batches in `mode`, each on the
+    device of its inputs (the members of a device mesh,
+    parallel/sharding.py), advanced in lock-step from this one host
+    thread: every batch's context (whose true view counts are the solve's
+    one host read) is built before the first launch, then each stage
+    (init, half-sweep s, finalize) is issued for every batch before the
+    next, so the queues of several cards overlap. Each batch's outputs
+    are those of its own run_patchmatch_batch."""
+    for inputs, kb in zip(batches, keys_list):
+        if len(kb) != inputs.ref_img.shape[0]:
+            raise ValueError(f"{len(kb)} keys for a batch of "
+                             f"{inputs.ref_img.shape[0]} views")
+    if len(batches) != len(keys_list):
+        raise ValueError(f"{len(batches)} batches and {len(keys_list)} "
+                         f"key batches")
+    ctxs = [_context(inputs, params, mode) for inputs in batches]
+    split = [keys.split(kb) for kb in keys_list]
+    states = [_init_state(inputs, ctx.params, mode, k_init, ctx)
+              for inputs, ctx, (k_init, _) in zip(batches, ctxs, split)]
+    for s in range(2 * params.max_iterations):
+        states = [_sweep(state, inputs, ctx, s % 2, s // 2,
+                         keys.fold_in(k_sweeps, s), ctx.params, mode)
+                  for state, inputs, ctx, (_, k_sweeps)
+                  in zip(states, batches, ctxs, split)]
+    return [finalize(state, inputs, ctx.params)
+            for state, inputs, ctx in zip(states, batches, ctxs)]
+
+
 def run_patchmatch_batch(inputs: SolverInputs, keys_b: keys.KeyBatch,
                          params: PatchMatchParams,
                          mode: Mode = Mode()) -> SolverOutputs:
@@ -603,17 +671,7 @@ def run_patchmatch_batch(inputs: SolverInputs, keys_b: keys.KeyBatch,
     ``k_init, k_sweeps = split(key)`` and sweep s uses ``fold_in(k_sweeps,
     s)``, iteration s // 2, parity s % 2. Returns the batch's outputs,
     each view's those of its own run_patchmatch."""
-    if len(keys_b) != inputs.ref_img.shape[0]:
-        raise ValueError(f"{len(keys_b)} keys for a batch of "
-                         f"{inputs.ref_img.shape[0]} views")
-    ctx = _context(inputs, params, mode)
-    params = ctx.params
-    k_init, k_sweeps = keys.split(keys_b)
-    state = _init_state(inputs, params, mode, k_init, ctx)
-    for s in range(2 * params.max_iterations):
-        state = _sweep(state, inputs, ctx, s % 2, s // 2,
-                       keys.fold_in(k_sweeps, s), params, mode)
-    return finalize(state, inputs, params)
+    return run_patchmatch_members([inputs], [keys_b], params, mode)[0]
 
 
 def run_patchmatch(inputs: SolverInputs, key: keys.Key,

@@ -88,7 +88,7 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.acmmp_geom_launch.argtypes = ([ci, ci] + [vp] * 3
                                           + [ctypes.POINTER(ci), vp]
-                                          + [ci] * 6 + [cf, vp])
+                                          + [ci] * 8 + [cf, vp])
         lib.acmmp_geom_first_launch.argtypes = ([ci] + [vp] * 4 + [ci] * 7
                                                 + [cf, vp])
         for fn in (lib.acmmp_geom_launch, lib.acmmp_geom_first_launch):
@@ -116,13 +116,14 @@ def geom_consistency_cost_cuda(ref_cam: geo.Camera, src_cams: geo.Camera,
                                src_depths: torch.Tensor,
                                planes: torch.Tensor, params: PatchMatchParams,
                                row_pack_off=None, n_views=None,
-                               prep: Optional[GeomPrep] = None
-                               ) -> torch.Tensor:
+                               prep: Optional[GeomPrep] = None,
+                               origin=None) -> torch.Tensor:
     """Reprojection errors through the kernel: planes [K, Hg, W, 4] (or
     [Hg, W, 4]) -> [K, Hg, W, V] (or [Hg, W, V]); for a batch (ref_cam
     [B]), planes [K, B, Hg, W, 4] (or [B, Hg, W, 4]) -> [K, B, Hg, W, V]
     (or [B, Hg, W, V]). The kernel rebuilds the pixel grid from the
-    parity offset `row_pack_off` (host int, None for the full grid).
+    parity offset `row_pack_off` (host int, None for the full grid) and
+    the tile origin `origin` (host ints (y0, x0), None for (0, 0)).
     `n_views`: a host int, or for a batch a sequence of B host ints."""
     if prep is None:
         prep = prepare(ref_cam, src_cams, src_depths)
@@ -146,6 +147,7 @@ def geom_consistency_cost_cuda(ref_cam: geo.Camera, src_cams: geo.Camera,
         raise ValueError("geom kernel: problem too large for 32-bit indexing")
     nv = view_counts("geom", n_views, B, V)
     off = -1 if row_pack_off is None else int(row_pack_off)
+    y0, x0 = (0, 0) if origin is None else tile_origin(origin)
 
     out = torch.empty((K, B, Hg, W, V), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -153,7 +155,7 @@ def geom_consistency_cost_cuda(ref_cam: geo.Camera, src_cams: geo.Camera,
         rc = _lib().acmmp_geom_launch(
             K, B, planes.data_ptr(), prep.depths.data_ptr(),
             prep.consts.data_ptr(), nv, out.data_ptr(), V, Hg, W,
-            Hs, Ws, off, float(params.geom_cost_max), stream)
+            Hs, Ws, off, y0, x0, float(params.geom_cost_max), stream)
     if rc != 0:
         raise RuntimeError(f"geom kernel launch failed: cudaError {rc}")
     launches[K] += 1
@@ -162,14 +164,24 @@ def geom_consistency_cost_cuda(ref_cam: geo.Camera, src_cams: geo.Camera,
     return out[0] if squeeze else out
 
 
+def tile_origin(origin):
+    """(y0, x0) as the kernel's ints; an origin off the integer grid
+    raises (the tile solver's origins are whole pixels)."""
+    y0, x0 = (float(o) for o in origin)
+    if y0 != int(y0) or x0 != int(x0):
+        raise ValueError(f"geom kernel: origin {origin} is not a whole "
+                         f"pixel")
+    return int(y0), int(x0)
+
+
 def geom_first_cuda(ref_cam: geo.Camera, src_cams: geo.Camera,
                     src_depths: torch.Tensor, planes: torch.Tensor,
                     params: PatchMatchParams, row_pack_off=None,
                     n_views=None, prep: Optional[GeomPrep] = None
                     ) -> torch.Tensor:
-    """geom_consistency_cost_cuda of one view through the kernel's first
-    design, the redesign's yardstick; its launches count in
-    `first_launches`. `n_views` is a host int."""
+    """geom_consistency_cost_cuda of one view at the origin (0, 0)
+    through the kernel's first design, the redesign's yardstick; its
+    launches count in `first_launches`. `n_views` is a host int."""
     planes, squeeze = hypothesis_stack("geom", planes, SUPPORTED_K)
     K, Hg, W = planes.shape[:3]
     V, Hs, Ws = src_depths.shape

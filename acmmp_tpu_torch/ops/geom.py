@@ -35,13 +35,16 @@ from acmmp_tpu_torch.ops import parity
 def geom_consistency_cost(ref_cam: geo.Camera, src_cams: geo.Camera,
                           src_depths: torch.Tensor, planes: torch.Tensor,
                           params: PatchMatchParams, row_pack_off=None,
-                          n_views=None, prep=None) -> torch.Tensor:
+                          n_views=None, prep=None,
+                          origin=None) -> torch.Tensor:
     """[..., Hg, W, V] clamped reprojection errors of `planes`
     [..., Hg, W, 4] against `src_depths` [V, Hs, Ws] (0 = invalid).
 
-    The planes lie on the full pixel grid at origin (0, 0), or on its
-    parity-packed half grid when `row_pack_off` (the host int off0) is
-    given; both routes build that grid from the same two facts. `n_views`
+    The planes lie on the full pixel grid, or on its parity-packed half
+    grid when `row_pack_off` (the host int off0) is given, of a tile whose
+    pixel (0, 0) is image pixel `origin` (host ints (y0, x0); None for
+    (0, 0): the whole image); both routes build that grid from the same
+    three facts. `n_views`
     is the true view count (a host int; for a batch, a sequence of B host
     ints): the kernel writes geom_cost_max for
     padded slots without reading them; the plain version reads their zero
@@ -52,18 +55,24 @@ def geom_consistency_cost(ref_cam: geo.Camera, src_cams: geo.Camera,
 
         return cuda_geom.geom_consistency_cost_cuda(
             ref_cam, src_cams, src_depths, planes, params,
-            row_pack_off=row_pack_off, n_views=n_views, prep=prep)
-    x, y = plane_grid(planes, row_pack_off)
+            row_pack_off=row_pack_off, n_views=n_views, prep=prep,
+            origin=origin)
+    x, y = plane_grid(planes, row_pack_off, origin)
     return _geom_plain(ref_cam, src_cams, src_depths, planes, x, y, params)
 
 
-def plane_grid(planes: torch.Tensor, row_pack_off=None):
-    """The pixel grid (x, y) of `planes` [..., Hg, W, 4]: the full grid,
-    or the rows of parity offset off0 of the [2 Hg, W] grid packed."""
+def plane_grid(planes: torch.Tensor, row_pack_off=None, origin=None):
+    """The pixel grid (x, y) of `planes` [..., Hg, W, 4] in image
+    coordinates: the full grid, or the rows of parity offset off0 of the
+    [2 Hg, W] grid packed, shifted by the tile origin (y0, x0)."""
     Hg, W = planes.shape[-3:-1]
+    rows = Hg if row_pack_off is None else 2 * Hg
+    x, y = geo.pixel_grid(rows, W, device=planes.device)
+    if origin is not None:
+        y = y + float(origin[0])
+        x = x + float(origin[1])
     if row_pack_off is None:
-        return geo.pixel_grid(Hg, W, device=planes.device)
-    x, y = geo.pixel_grid(2 * Hg, W, device=planes.device)
+        return x, y
     return (parity.pack_rows(x, row_pack_off),
             parity.pack_rows(y, row_pack_off))
 

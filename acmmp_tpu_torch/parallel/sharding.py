@@ -1,20 +1,103 @@
-"""Stacking per-view solver inputs into a batch — the port of
-``acmmp_tpu/parallel/sharding.py::stack_solver_inputs``.
+"""View-parallel execution over a device mesh — the port of
+``acmmp_tpu/parallel/sharding.py`` within one process.
 
-The batched executor (pipeline/batched.py) solves B reference views of
-one static shape per launch stream; this gives it their inputs with a
-leading [B] on every field. The mesh specs and ``pad_to_multiple`` of the
-JAX module belong to the multi-GPU executor and are not ported yet
-(ROADMAP Queue 1 item 6)."""
+A mesh here is an ordered list of devices (``Mesh``); member m owns the
+contiguous chunk that the JAX package's ``P("view")`` gives chip m:
+rows [m n / P, (m + 1) n / P) of a batch of n = a multiple of P problems.
+The parallel axes of the problem are those of the JAX module:
+
+  * **view parallelism**: each reference view's solve is independent
+    within a stage, so each member solves its chunk of a padded batch
+    (``view_sharded_solve``);
+  * **the geometric pass's bank**: every member needs the current depth
+    maps of its problems' source views; each member holds its own views'
+    maps, every member receives the whole bank by device copies (the
+    all-gather) and picks each problem's sources with a local integer
+    gather (``gather_src_depths``).
+
+Members advance in lock-step from one host thread
+(engine.patchmatch.run_patchmatch_members): each stage is issued for
+every member before any host read, so the queues of several cards
+overlap. A mesh may repeat a device: the CPU tests and chip_smoke.py run
+a mesh of four members on one device, whose copies are then no copies
+at all. There is no fallback: ``make_view_mesh()`` without a CUDA device
+raises. Multi-process execution across hosts is not ported (ROADMAP
+Queue 1 item 6b)."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
+from acmmp_tpu_torch.config import PatchMatchParams
 from acmmp_tpu_torch.core.geometry import Camera, stack_cameras
-from acmmp_tpu_torch.engine.patchmatch import SolverInputs
+from acmmp_tpu_torch.engine.patchmatch import (Mode, SolverInputs,
+                                               SolverOutputs,
+                                               run_patchmatch_members)
+from acmmp_tpu_torch.ops import keys
+
+class Mesh(tuple):
+    """An ordered list of devices; members may repeat a device. The same
+    list shards views (this module) or a view's image rows
+    (parallel/tiles.py)."""
+
+    def __new__(cls, devices):
+        mesh = super().__new__(cls, (_device(d) for d in devices))
+        if not mesh:
+            raise ValueError("a mesh needs at least one device")
+        return mesh
+
+
+def _device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def cuda_devices(n_devices: Optional[int] = None) -> List[torch.device]:
+    """Every visible CUDA device (the first `n_devices`); raises without
+    one."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+        raise RuntimeError(
+            "acmmp_tpu_torch: a mesh of the visible CUDA devices was asked "
+            "for, but there is none; pass devices=[...] for a mesh of "
+            "given (possibly repeated) devices")
+    devices = [torch.device("cuda", i)
+               for i in range(torch.cuda.device_count())]
+    return devices if n_devices is None else devices[:n_devices]
+
+
+def make_view_mesh(n_devices: Optional[int] = None,
+                   devices=None) -> Mesh:
+    """A mesh over the view axis: every visible CUDA device (the first
+    `n_devices`), or the given `devices`, which may repeat one device."""
+    return Mesh(cuda_devices(n_devices) if devices is None else devices)
+
+
+def map_tensors(t, fn):
+    """`fn` applied to every tensor of a SolverInputs / SolverOutputs
+    (camera fields included); None fields stay None."""
+    def one(a):
+        if a is None:
+            return None
+        if isinstance(a, Camera):
+            return Camera(*(fn(f) for f in (a.K, a.R, a.t, a.width, a.height,
+                                            a.depth_min, a.depth_max)))
+        return fn(a)
+    return type(t)(*(one(a) for a in t))
+
+
+def check_placement(mesh: Mesh, members: Sequence[SolverInputs]) -> None:
+    """Raise unless every tensor of member m's inputs sits on mesh[m]."""
+    for m, (dev, mi) in enumerate(zip(mesh, members)):
+        def on(t):
+            if t.device != dev:
+                raise ValueError(f"member {m} of the mesh has an input on "
+                                 f"{t.device}, not on its device {dev}")
+            return t
+        map_tensors(mi, on)
 
 
 def stack_solver_inputs(inputs: Sequence[SolverInputs]) -> SolverInputs:
@@ -40,3 +123,114 @@ def stack_solver_inputs(inputs: Sequence[SolverInputs]) -> SolverInputs:
         return torch.stack(xs)
 
     return SolverInputs(*(stack(*xs) for xs in zip(*inputs)))
+
+
+def pad_to_multiple(batch: SolverInputs, keys_b: keys.KeyBatch, m: int):
+    """Pad the leading view axis to a multiple of `m` (the mesh size) by
+    repeating the last problem; returns (batch, keys, valid [Np] bool)."""
+    n = len(keys_b)
+    pad = -n % m
+    valid = torch.arange(n + pad, device=batch.ref_img.device) < n
+    if pad == 0:
+        return batch, keys_b, valid
+    batch = map_tensors(batch, lambda x: torch.cat(
+        [x, x[-1:].expand((pad,) + x.shape[1:])]))
+    words = keys_b.words
+    return batch, keys.KeyBatch([*words, *([words[-1]] * pad)]), valid
+
+
+def member_rows(n: int, size: int, m: int) -> slice:
+    """The rows of an [n, ...] axis that member m of a mesh of `size`
+    owns (n a multiple of size)."""
+    if n % size:
+        raise ValueError(f"{n} rows do not split over {size} members")
+    per = n // size
+    return slice(m * per, (m + 1) * per)
+
+
+def shard_batch(mesh: Mesh, batch):
+    """Each member's chunk of a batch (SolverInputs or a tensor with a
+    leading view axis), on the member's device: the leading-axis view
+    sharding."""
+    def chunk(m):
+        rows = member_rows(_leading(batch), len(mesh), m)
+        to = lambda x: x[rows].to(mesh[m])                    # noqa: E731
+        return to(batch) if torch.is_tensor(batch) else map_tensors(batch,
+                                                                    to)
+    return [chunk(m) for m in range(len(mesh))]
+
+
+def _leading(batch) -> int:
+    return (batch.shape[0] if torch.is_tensor(batch)
+            else batch.ref_img.shape[0])
+
+
+def _shard_keys(mesh: Mesh, keys_b: keys.KeyBatch) -> List[keys.KeyBatch]:
+    return [keys.KeyBatch(keys_b.words[member_rows(len(keys_b), len(mesh),
+                                                   m)])
+            for m in range(len(mesh))]
+
+
+def view_sharded_solve(mesh: Mesh, batch: SolverInputs,
+                       keys_b: keys.KeyBatch, params: PatchMatchParams,
+                       mode: Mode) -> List[SolverOutputs]:
+    """A photometric (or hierarchy, seeded, planar-prior) pass for a batch
+    of reference views, sharded over the mesh: each member solves its
+    chunk as one batch, the members in lock-step. `batch`'s leading axis
+    must be a multiple of the mesh size (pad_to_multiple). Returns the
+    member shards, each on its member's device."""
+    if batch.ref_img.ndim != 3:
+        raise ValueError("view_sharded_solve: the batch needs a leading "
+                         "view axis")
+    members = shard_batch(mesh, batch)
+    check_placement(mesh, members)
+    return run_patchmatch_members(members, _shard_keys(mesh, keys_b),
+                                  params, mode)
+
+
+def gather_src_depths(mesh: Mesh, depth_maps, src_idx: torch.Tensor
+                      ) -> List[torch.Tensor]:
+    """The geometric pass's stage-barrier collective: every member holds
+    its own views' current depth maps (`depth_maps`: the member shards of
+    the [N, Hs, Ws] bank in mesh order, or the whole bank, of which
+    member m then holds chunk m); every member receives the whole bank by
+    device copies (the all-gather; none on a repeated device), then a
+    local integer gather picks each of its problems' source maps
+    (`src_idx` [B, V] indices into the bank, chunk m member m's). Returns
+    the member shards of the [B, V, Hs, Ws] result. Both leading dims
+    must be multiples of the mesh size."""
+    if torch.is_tensor(depth_maps):
+        depth_maps = shard_batch(mesh, depth_maps)
+    if len(depth_maps) != len(mesh):
+        raise ValueError(f"{len(depth_maps)} bank shards for a mesh of "
+                         f"{len(mesh)}")
+    idx = shard_batch(mesh, torch.as_tensor(src_idx, dtype=torch.int64))
+    out = []
+    for dev, si in zip(mesh, idx):
+        full = torch.cat([d.to(dev) for d in depth_maps])
+        out.append(full[si])
+    return out
+
+
+def view_sharded_geometric_solve(mesh: Mesh, batch: SolverInputs,
+                                 depth_maps, src_idx: torch.Tensor,
+                                 keys_b: keys.KeyBatch,
+                                 params: PatchMatchParams,
+                                 mode: Mode) -> List[SolverOutputs]:
+    """A geometric-consistency pass: gathers the current depth maps over
+    the mesh (gather_src_depths), gives each problem its source maps,
+    then runs the sharded solve. `batch` comes without src_depths; its
+    leading axis, `src_idx`'s and the bank's are multiples of the mesh
+    size. Returns the member shards."""
+    if not mode.geom_consistency:
+        raise ValueError("view_sharded_geometric_solve needs a geometric "
+                         "mode")
+    if batch.src_depths is not None:
+        raise ValueError("view_sharded_geometric_solve builds src_depths "
+                         "from depth_maps; the batch must not carry them")
+    gathered = gather_src_depths(mesh, depth_maps, src_idx)
+    members = [b._replace(src_depths=g)
+               for b, g in zip(shard_batch(mesh, batch), gathered)]
+    check_placement(mesh, members)
+    return run_patchmatch_members(members, _shard_keys(mesh, keys_b),
+                                  params, mode)

@@ -9,6 +9,7 @@ construction and PatchMatch must recover the exact plane depth."""
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Tuple
 
 import numpy as np
@@ -16,6 +17,15 @@ from PIL import Image as PILImage
 
 from acmmp_tpu_torch.io.dense_folder import (NumpyCamera, write_cam_txt,
                                              write_pair_txt)
+
+
+def _map_views(view, n_views: int):
+    """[view(i) for i in range(n_views)], rendered in parallel threads
+    (numpy releases the GIL in its array loops); each view's arithmetic
+    is that of a sequential loop, so the scene is too."""
+    workers = max(1, min(n_views, os.cpu_count() or 1))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(view, range(n_views)))
 
 
 def look_at_camera(eye, target, up=(0.0, 1.0, 0.0), f=120.0, width=64,
@@ -65,10 +75,9 @@ def textured_plane_scene(
         val = val - val.min()
         return 30.0 + 200.0 * val / max(val.max(), 1e-6)
 
-    cams: List[NumpyCamera] = []
-    images: List[np.ndarray] = []
     offsets = np.linspace(-0.25, 0.25, n_views)
-    for i in range(n_views):
+
+    def view(i):
         # distinct, small y offsets: no camera pair is exactly axis-aligned,
         # so no source coordinate sits on a truncation tie across the image
         eye = np.array([offsets[i], 0.013 * i + 0.004 * (i % 2), 0.0])
@@ -85,8 +94,9 @@ def textured_plane_scene(
         center = -cam.R.T @ cam.t
         s = (plane_z - center[2]) / dirs_world[..., 2]
         pw = center[None, None, :] + s[..., None] * dirs_world
-        images.append(texture(pw[..., 0], pw[..., 1]).astype(np.float32))
-        cams.append(cam)
+        return texture(pw[..., 0], pw[..., 1]).astype(np.float32), cam
+
+    images, cams = (list(a) for a in zip(*_map_views(view, n_views)))
     return images, cams, plane_z
 
 
@@ -117,11 +127,9 @@ def textured_relief_scene(
         return base_z + amp * (np.sin(1.1 * xw) * np.cos(0.9 * yw)
                                + 0.5 * np.sin(2.3 * xw + 1.0))
 
-    cams: List[NumpyCamera] = []
-    images: List[np.ndarray] = []
-    gt_depth0 = None
     offsets = np.linspace(-spread, spread, n_views)
-    for i in range(n_views):
+
+    def view(i):
         eye = np.array([offsets[i], 0.013 * i + 0.004 * (i % 2), 0.0])
         target = (np.array([0.0, 0.0, base_z]) if converge
                   else eye + np.array([0.0, 0.0, 1.0]))
@@ -142,12 +150,13 @@ def textured_relief_scene(
             g = p[..., 2] - z_surf(p[..., 0], p[..., 1])
             s = s - 0.8 * g / dirs_world[..., 2]
         p = center[None, None, :] + s[..., None] * dirs_world
-        images.append(texture(p[..., 0], p[..., 1]).astype(np.float32))
-        cams.append(cam)
-        if i == 0:
-            # depth = z-coordinate in the camera frame
-            gt_depth0 = ((p - center) @ cam.R.T)[..., 2].astype(np.float32)
-    return images, cams, gt_depth0
+        # depth = z-coordinate in the camera frame
+        gt = (((p - center) @ cam.R.T)[..., 2].astype(np.float32) if i == 0
+              else None)
+        return texture(p[..., 0], p[..., 1]).astype(np.float32), cam, gt
+
+    images, cams, gts = (list(a) for a in zip(*_map_views(view, n_views)))
+    return images, cams, gts[0]
 
 
 def relief_gt_points(cams, width, height, base_z=5.0, amp=0.35,
@@ -163,8 +172,7 @@ def relief_gt_points(cams, width, height, base_z=5.0, amp=0.35,
         return base_z + amp * (np.sin(1.1 * xw) * np.cos(0.9 * yw)
                                + 0.5 * np.sin(2.3 * xw + 1.0))
 
-    gt_parts = []
-    for cam in cams:
+    def one(cam):
         xs = np.linspace(0, width - 1, samples[1])
         ys = np.linspace(0, height - 1, samples[0])
         Xg, Yg = np.meshgrid(xs, ys)
@@ -178,9 +186,9 @@ def relief_gt_points(cams, width, height, base_z=5.0, amp=0.35,
             p = center[None, None] + s[..., None] * dirs_w
             g = p[..., 2] - z_surf(p[..., 0], p[..., 1])
             s = s - 0.8 * g / dirs_w[..., 2]
-        gt_parts.append(
-            (center[None, None] + s[..., None] * dirs_w).reshape(-1, 3))
-    return np.concatenate(gt_parts)
+        return (center[None, None] + s[..., None] * dirs_w).reshape(-1, 3)
+
+    return np.concatenate(_map_views(lambda i: one(cams[i]), len(cams)))
 
 
 def write_dense_folder(dense: str, images, cams) -> str:

@@ -84,9 +84,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      fusion through the plain sampler (the PLY bytes must be equal), and
      a prior-aware fusion with a x1.002 second candidate through the
      kernel and through the plain version (equal PLY bytes); then (8b)
-     the same folder through run_pipeline with view_batch=4 (batches of
-     4, 4 and 1) into a fresh output directory: its launches (one
-     solve's per batch), stage walls and the cloud at phase 8's bars;
+     the first PHASE8B_VIEWS views of the scene as a dense folder of
+     their own through run_pipeline with view_batch=4 (batches of 4 and
+     1): its launches (one solve's per batch), stage walls and the cloud
+     at phase 8's bars;
   9. (run after 6) the ZNCC cost decomposition and the lane probes:
      the six probes of csrc/probes.cu bitwise against their plain
      versions and numpy, on the probe tool's words and on
@@ -127,6 +128,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
   10b. fullscale_quality at its defaults (1280x960, 6 views, the default
      random law): its 12 metrics at FULLSCALE_BARS, its walls (the
      evaluation on a line of its own) and its launch counts;
+  11. the device mesh on this card, MESH_MEMBERS members that all sit
+     on it (parallel/): (11c, run after 8b) phase 8's dense folder
+     through run_pipeline on a view mesh, the planar-prior second solve
+     at the coarse scale only: the launches of batches padded
+     to the mesh, no source .dmb read in the geometric passes (the
+     depth-file reads counted), the cloud at phase 8's bars and the
+     mesh fusion's PLY bytes equal to the sequential fusion's of the
+     same checkpoints; (11a, after 10b) geom.cu at K = 1, 8 and 5, full
+     and packed, at the tile origin TILE_ORIGIN and at (0, 0)
+     torch.equal to its plain version (at (0, 0) also to its first
+     design), K=8 timed in turns at both origins, and zncc.cu K=1 and
+     K=8 at the origin against plain at the ZNCC bar; (11b) a 3200x2368
+     / 8-source view (above tile_pixels) solved with its rows over a
+     tile mesh, photometric and geometric, torch.equal to the untiled
+     solve, 13 ZNCC launches per member (9 geom), walls of both;
 then the kernel table as one JSON line, the card line and the result
 line. Lines near the start say which of cv2, matplotlib, PIL and scipy
 import here, and how long read_png takes on 1600x1200 normal priors that
@@ -211,6 +227,10 @@ CHAIN_TEXTURE_SCALE = 24.0
 SAMPLE_TPU_KERNEL = "acmmp_tpu/ops/pallas_sample.py:32"
 SAMPLE_CHANNELS = (4, 8)
 SAMPLE_INVALID_SHARE = 0.1
+# phase 8b runs the batched executor on the first 5 of the 9 views
+# (batches of 4 and 1): three 9-view pipelines (8, 8b, 11c), each most of
+# it the host's planar-prior build, would not fit the script in its time
+PHASE8B_VIEWS = 5
 # phase 7 runs the chain on these 3 of the 9 views (baselines 0.25 and
 # 0.5 around view 0): every mode and both solver kernels, while phase 8
 # runs the schedule on all 9
@@ -299,6 +319,19 @@ GRID_VARIANTS = {"no_prior": ("ACMMP", "ACMMP_no_prior.ply"),
 # (0.4811, 0.4347; QUALITY_fullscale_r05.json) and 1.25x its acc_mean
 # (5.61 mm): a broken port lands near 0
 FULLSCALE_BARS = {"acc2": 0.38, "cmp2": 0.35, "acc_mean": 7.0}
+
+# phase 11: the device mesh on one card, a mesh of MESH_MEMBERS members
+# that all sit on it. 11b: a view above PipelineConfig().tile_pixels
+# (4,000,000) with its rows over the members, 592 rows each (H = 2368 =
+# 74 x 32); 11a times geom.cu at member 1's extended origin (592 - 24)
+MESH_MEMBERS = 4
+TILE_SHAPE = (3200, 2368, 8)        # width, height, sources: 7.58 MP
+# 11c skips the planar-prior second solve above this many pixels: at the
+# fine scale (1600x1184), not at the coarse one (800x592). The fine
+# scale's host prior build is most of a 9-view pipeline's wall, and the
+# script runs phase 8's schedule three times (8, 8b, 11c)
+PHASE11C_PRIOR_MAX_PIXELS = 1_000_000
+TILE_ORIGIN = (568, 0)
 
 TPU_KERNEL = {1: "acmmp_tpu/ops/pallas_ncc.py:108",
               2: "acmmp_tpu/ops/pallas_ncc.py:542",
@@ -1157,9 +1190,9 @@ def time_batched_kernels(views, pz, dev):
 
 
 def run_batched_pipeline_phase(dense, scene, dev, phase8):
-    """Phase 8b: phase 8's dense folder through run_pipeline with
-    PipelineConfig(view_batch=4) into a fresh output directory: the
-    batched executor solves each pass's 9 views in batches of 4, 4 and 1.
+    """Phase 8b: a dense folder of the first PHASE8B_VIEWS views of phase
+    8's scene through run_pipeline with PipelineConfig(view_batch=4):
+    the batched executor solves each pass's views in batches of 4 and 1.
     Launch counts from 0 around the run (each batch issues one solve's
     launches), the stage walls and solves/s, the .dmb layout, and the
     fused cloud at phase 8's bars. The PLY need not equal phase 8's: a
@@ -1239,6 +1272,197 @@ def run_batched_pipeline_phase(dense, scene, dev, phase8):
     assert len(pts) >= FUSED_MIN_VIEW_SHARE * H * W, len(pts)
     assert f_med < FUSED_MEDIAN_BAR, f_med
     assert f_share > FUSED_SHARE_BAR, f_share
+    return {"launches": launches, "wall": wall, "points": len(pts)}
+
+
+def run_tile_phase(dev):
+    """Phase 11b: a 3200x2368 / 8-source textured-plane view, above
+    tile_pixels, solved with its rows over a tile mesh of MESH_MEMBERS
+    members on one card (parallel/tiles.py), photometric and then
+    geometric (source depths the true plane's, re-entry from the tiled
+    photometric solve): each torch.equal to the untiled run_patchmatch on
+    depth, normal, cost and pre_costs, 13 ZNCC launches per member (9 geom
+    in the geometric mode) with the counts set to 0 just before, median
+    interior error under 0.15; walls of both printed. Returns the
+    launches and walls."""
+    import torch
+
+    from acmmp_tpu_torch.config import PatchMatchParams, PipelineConfig
+    from acmmp_tpu_torch.engine.inputs import build_solver_inputs
+    from acmmp_tpu_torch.engine.patchmatch import Mode, run_patchmatch
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, keys
+    from acmmp_tpu_torch.parallel.tiles import (HALO, make_tile_mesh,
+                                                tile_sharded_patchmatch)
+    from acmmp_tpu_torch.utils.synth import textured_plane_scene
+
+    width, height, n_src = TILE_SHAPE
+    assert width * height > PipelineConfig().tile_pixels
+    t0 = time.perf_counter()
+    images, cams, plane_z = textured_plane_scene(
+        n_views=n_src + 1, width=width, height=height,
+        f=600.0 * width / 320.0, plane_z=5.0)
+    scene_s = time.perf_counter() - t0
+    params = PatchMatchParams()
+    mesh = make_tile_mesh(devices=[dev] * MESH_MEMBERS)
+    photo = build_solver_inputs(images[0], images[1:], cams[0], cams[1:],
+                                params, device=dev)
+    H, W = photo.ref_img.shape
+    assert (H, W) == (height, width)
+    assert H % (8 * MESH_MEMBERS) == 0 and H // MESH_MEMBERS >= HALO
+    log(f"  scene built in {scene_s:.2f} s; {MESH_MEMBERS} members of "
+        f"{H // MESH_MEMBERS} rows (+{HALO}-row halos)")
+    n_sweeps = 2 * params.max_iterations
+    result = {"launches": {}, "walls": {}}
+
+    def solve(label, inputs, mode, key):
+        torch.cuda.synchronize()
+        cuda_ncc.reset_launch_counts()
+        cuda_geom.reset_launch_counts()
+        t = time.perf_counter()
+        tiled = tile_sharded_patchmatch(mesh, inputs, key, params, mode)
+        torch.cuda.synchronize()
+        t_tiled = time.perf_counter() - t
+        counts = {"zncc": dict(cuda_ncc.launches),
+                  "geom": dict(cuda_geom.launches)}
+        t = time.perf_counter()
+        whole = run_patchmatch(inputs, key, params, mode)
+        torch.cuda.synchronize()
+        t_whole = time.perf_counter() - t
+        equal = {f: bool(torch.equal(getattr(tiled, f), getattr(whole, f)))
+                 for f in tiled._fields}
+        med, share = interior_error(tiled.depth, W, H, plane_z)
+        n = MESH_MEMBERS
+        want = {"zncc": {1: n, 8: n * n_sweeps, 3: n * n_sweeps,
+                         2: n * n_sweeps},
+                "geom": ({1: n, 8: n * n_sweeps, 5: n * n_sweeps}
+                         if mode.geom_consistency else {1: 0, 8: 0, 5: 0})}
+        log(f"  {label}: tiled {t_tiled:.3f} s, untiled {t_whole:.3f} s "
+            f"(host clock, synchronized); torch.equal {equal}; launches "
+            f"{counts} (want {want}); median interior |depth - z| "
+            f"{med:.5f} (bar 0.15), share < 0.5 {share:.4f}")
+        assert all(equal.values()), (label, equal)
+        assert counts == want, (label, counts, want)
+        assert med < 0.15, (label, med)
+        result["launches"][label] = counts
+        result["walls"][label] = (t_tiled, t_whole)
+        return tiled
+
+    out = solve("photometric", photo, Mode(), keys.key(11))
+    geo_in = build_solver_inputs(
+        images[0], images[1:], cams[0], cams[1:], params, device=dev,
+        src_depths=[np.full(im.shape, plane_z, np.float32)
+                    for im in images[1:]],
+        init_depth=out.depth.cpu().numpy(),
+        init_normal_world=out.normal_world.cpu().numpy())
+    solve("geometric", geo_in, Mode(geom_consistency=True), keys.key(12))
+    return result
+
+
+def run_mesh_pipeline_phase(dense, scene, dev, phase8):
+    """Phase 11c: phase 8's dense folder through run_pipeline on a view
+    mesh of MESH_MEMBERS members on one card, into a fresh output
+    directory, the planar-prior second solve at the coarse scale only
+    (PHASE11C_PRIOR_MAX_PIXELS): each pass's views in batches of
+    MESH_MEMBERS (4, 4, 1), each batch padded to the mesh and one view
+    per member; launch counts
+    from 0 around the run; the geometric passes' source maps from the
+    bank, so that no source .dmb is read (each view's own depth files are
+    read 5 times in the run, counted); the cloud at phase 8's bars; and
+    the sequential fusion of the same checkpoints writes the mesh
+    fusion's PLY bytes."""
+    import torch
+
+    from acmmp_tpu_torch.config import PipelineConfig
+    from acmmp_tpu_torch.engine.fusion import run_fusion
+    from acmmp_tpu_torch.io import read_ply
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, cuda_sample
+    from acmmp_tpu_torch.parallel import make_view_mesh
+    from acmmp_tpu_torch.pipeline import scheduler
+
+    images, cams, plane_z = scene
+    n_views = len(images)
+    H, W = images[0].shape
+    cfg = PipelineConfig(output_dir="ACMMP_MESH",
+                         planar_prior_max_pixels=PHASE11C_PRIOR_MAX_PIXELS)
+    assert (W // 2) * (H // 2) <= PHASE11C_PRIOR_MAX_PIXELS < W * H
+    mesh = make_view_mesh(devices=[dev] * MESH_MEMBERS)
+    counters = {"zncc": cuda_ncc, "geom": cuda_geom, "sample": cuda_sample}
+    reads = []
+    real_read = scheduler.read_dmb
+
+    def counting_read(path):
+        reads.append(path)
+        return real_read(path)
+
+    records = _Records()
+    port_log = logging.getLogger("acmmp_tpu_torch")
+    port_log.addHandler(records)
+    for c in counters.values():
+        c.reset_launch_counts()
+    scheduler.read_dmb = counting_read
+    t0 = time.perf_counter()
+    try:
+        ply = scheduler.run_pipeline(dense, cfg, mesh=mesh)
+    finally:
+        scheduler.read_dmb = real_read
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: dict(c.launches) for k, c in counters.items()}
+    port_log.removeHandler(records)
+    stages = [(r.stage, r.seconds) for r in records.records
+              if hasattr(r, "stage")]
+
+    # per pass: batches of the mesh size, each padded to it, one solve
+    # per member; per view and scale a first solve and two geometric
+    # solves, and at the coarse scale the planar-prior second solve
+    n_sweeps = 2 * cfg.patchmatch.max_iterations
+    per_pass = -(-n_views // MESH_MEMBERS) * MESH_MEMBERS
+    solves, geom_solves = 7 * per_pass, 4 * per_pass
+    want = {"zncc": {1: solves, 8: solves * n_sweeps, 3: solves * n_sweeps,
+                     2: solves * n_sweeps},
+            "geom": {1: geom_solves, 8: geom_solves * n_sweeps,
+                     5: geom_solves * n_sweeps},
+            "sample": {"gather2d": n_views}}
+    # each view's own depth files: per scale its re-entry depth and its
+    # bank slot in each geometric pass (2 + 2), plus the hierarchy's
+    # re-entry (depths.dmb) and JBU's input (depths_geom.dmb) once; a run
+    # that read every problem's sources would add 8 reads per pass
+    depth_reads = {}
+    for path in reads:
+        if os.path.basename(path) in ("depths.dmb", "depths_geom.dmb"):
+            depth_reads[path] = depth_reads.get(path, 0) + 1
+    pts, _, _ = read_ply(ply)
+    err = np.abs(pts[:, 2] - plane_z)
+    f_med, f_share = float(np.median(err)), float((err < 0.5).mean())
+    out = os.path.dirname(ply)
+    t0 = time.perf_counter()
+    seq_ply = run_fusion(dense, out, scheduler.generate_sample_list(dense),
+                         True, cfg.fusion, ply_name="sequential.ply",
+                         device=dev)
+    seq_s = time.perf_counter() - t0
+    with open(ply, "rb") as a, open(seq_ply, "rb") as b:
+        ply_equal = a.read() == b.read()
+    fusion_s = dict(stages).get("fusion", float("nan"))
+    log(f"  pipeline wall {wall:.2f} s (phase 8 {phase8['wall']:.2f} s); "
+        f"{MESH_MEMBERS} members on {dev}")
+    log("  stage walls: " + ", ".join(f"{k} {v:.2f} s" for k, v in stages))
+    log(f"  launches: {launches} (want {want})")
+    log(f"  depth-file reads per view file: {sorted(set(depth_reads.values()))}"
+        f" over {len(depth_reads)} files (want 5 each; 21 with per-problem "
+        f"source reads)")
+    log(f"  fused points {len(pts)} (phase 8: {phase8['points']}); median "
+        f"|z - plane| {f_med:.6f} (bar {FUSED_MEDIAN_BAR}), share < 0.5 "
+        f"{f_share:.5f} (bar {FUSED_SHARE_BAR}); mesh fusion "
+        f"{fusion_s:.2f} s, sequential {seq_s:.2f} s, PLY bytes equal "
+        f"{ply_equal}")
+    assert launches == want, (launches, want)
+    assert len(depth_reads) == 2 * n_views, sorted(depth_reads)
+    assert set(depth_reads.values()) == {5}, depth_reads
+    assert np.isfinite(pts).all()
+    assert len(pts) >= FUSED_MIN_VIEW_SHARE * H * W, len(pts)
+    assert f_med < FUSED_MEDIAN_BAR, f_med
+    assert f_share > FUSED_SHARE_BAR, f_share
+    assert ply_equal
     return {"launches": launches, "wall": wall, "points": len(pts)}
 
 
@@ -1841,10 +2065,10 @@ class SolveCounter:
         self.solves = self.seeded = 0
         counter = self
 
-        def solve_batch(solver, inputs_list, keys_list, mode):
+        def solve_batch(solver, inputs_list, keys_list, mode, **kw):
             counter.solves += len(inputs_list)
             counter.seeded += len(inputs_list) if mode.seeded else 0
-            return counter.orig(solver, inputs_list, keys_list, mode)
+            return counter.orig(solver, inputs_list, keys_list, mode, **kw)
 
         BatchedSolver.solve_batch = solve_batch
         return self
@@ -2150,7 +2374,8 @@ def main() -> int:
     from acmmp_tpu_torch.ops import ncc as ncc_ops
     from acmmp_tpu_torch.ops import parity, sampling
     from acmmp_tpu_torch.utils.synth import (textured_plane_scene,
-                                             textured_relief_scene)
+                                             textured_relief_scene,
+                                             write_dense_folder)
 
     dev = torch.device("cuda")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2951,9 +3176,20 @@ def main() -> int:
     pipe = run_pipeline_phase(fine_scene, dev, work, ref_err)
     # ---- phase 8b: the same folder through the batched executor ----
     mark("8b")
-    log(f"phase 8b: run_pipeline on phase 8's dense folder, "
+    log(f"phase 8b: run_pipeline on a dense folder of views 0-"
+        f"{PHASE8B_VIEWS - 1} of phase 8's scene, "
         f"PipelineConfig(view_batch=4)")
-    pipe_b = run_batched_pipeline_phase(pipe["dense"], fine_scene, dev, pipe)
+    scene_b = (fine_scene[0][:PHASE8B_VIEWS], fine_scene[1][:PHASE8B_VIEWS],
+               fine_scene[2])
+    pipe_b = run_batched_pipeline_phase(
+        write_dense_folder(os.path.join(work, "dense_b"), *scene_b[:2]),
+        scene_b, dev, pipe)
+    # ---- phase 11c: the same folder over a view mesh on this card ----
+    mark("11c")
+    log(f"phase 11c: run_pipeline on phase 8's dense folder over a view "
+        f"mesh of {MESH_MEMBERS} members on {dev}, PipelineConfig("
+        f"planar_prior_max_pixels={PHASE11C_PRIOR_MAX_PIXELS})")
+    run_mesh_pipeline_phase(pipe["dense"], fine_scene, dev, pipe)
     shutil.rmtree(pipe["dense"])
     # ---- phase 10: the rest of the CLI and the DTU method grid ----
     mark("10")
@@ -2962,6 +3198,80 @@ def main() -> int:
     mark("10b")
     run_fullscale_phase(work, dev)
     shutil.rmtree(work)
+    # ---- phase 11a: geom.cu and zncc.cu at a tile origin ----
+    mark("11a")
+    log(f"phase 11a: geom.cu at tile origins {TILE_ORIGIN} and (0, 0) "
+        f"against plain, 1600x1184, 8 sources (phase 3c's rig)")
+    rig, pz, smooth, _band = geom_rig(1600, 1184, 8, 64)
+    nv = int(rig.view_mask.sum())
+    off = off_plane(rig, pz, (1.031, 0.967))
+    rw = random_planes(rig, 6, 113, 0.125, 0.25)
+    stacks = {1: rw[:1], 8: torch.cat([off, rw]),
+              5: torch.cat([off, rw[:3]])}
+    for origin in (TILE_ORIGIN, (0, 0)):
+        for K, off0 in ((1, None), (8, 0), (8, 1), (5, 0), (5, 1)):
+            pk = (stacks[K] if off0 is None
+                  else parity.pack_rows_c(stacks[K], off0)).contiguous()
+            gargs = (rig.ref_cam, rig.src_cams, smooth, pk)
+            got = geom_ops.geom_consistency_cost(
+                *gargs, params, row_pack_off=off0, n_views=nv, origin=origin)
+            want_g = geom_ops.geom_consistency_cost(
+                *gargs, plain_params, row_pack_off=off0, origin=origin)
+            eq = bool(torch.equal(got, want_g))
+            line = (f"  origin {origin} K={K} off0={off0}: == plain {eq}; at "
+                    f"max {(got >= params.geom_cost_max).float().mean().item():.4f}")
+            if origin == (0, 0):
+                # the bits before the origin: the frozen first design's
+                first = cuda_geom.geom_first_cuda(
+                    *gargs, params, row_pack_off=off0, n_views=nv)
+                same = bool(torch.equal(got, first))
+                line += f"; == first design {same}"
+                assert same, (origin, K, off0)
+            log(line)
+            assert eq, (origin, K, off0)
+    del rig, smooth, _band, off, rw, stacks
+    # K=8 at the tile origin and at (0, 0) in turns, on phase 6's field
+    images_f, cams_f, pz_f = chain_scenes[(1600, 1184)]
+    tin = build_solver_inputs(
+        images_f[0], images_f[1:], cams_f[0], cams_f[1:], params, device=dev,
+        src_depths=[np.full(im.shape, pz_f, np.float32)
+                    for im in images_f[1:]])
+    nv = int(tin.view_mask.sum())
+    gprep = cuda_geom.prepare(tin.ref_cam, tin.src_cams, tin.src_depths)
+    pk = parity.pack_rows_c(true_planes(tin, pz_f, 8, 78), 0).contiguous()
+    gargs = (tin.ref_cam, tin.src_cams, tin.src_depths, pk)
+
+    def gorigin(origin):
+        return lambda: cuda_geom.geom_consistency_cost_cuda(
+            *gargs, params, row_pack_off=0, n_views=nv, prep=gprep,
+            origin=origin)
+
+    turns = {(0, 0): [], TILE_ORIGIN: []}
+    for origin in ((0, 0), TILE_ORIGIN, TILE_ORIGIN, (0, 0)):
+        turns[origin].append(time_ms(gorigin(origin), 20))
+    plain_origin_ms = time_ms(lambda: geom_ops.geom_consistency_cost(
+        *gargs, plain_params, row_pack_off=0, origin=TILE_ORIGIN), 2)
+    H_f, W_f = tin.ref_img.shape
+    gb_ms, gb_by = geom_bound(tin, 8, H_f // 2, W_f)
+    origin_ms = statistics.mean(turns[TILE_ORIGIN])
+    log(f"  geom.cu K=8 packed, 1600x1184, in turns ((0, 0), origin, "
+        f"origin, (0, 0)): origin {TILE_ORIGIN} {turns[TILE_ORIGIN]} ms, "
+        f"(0, 0) {turns[(0, 0)]} ms; plain at the origin "
+        f"{plain_origin_ms:.3f} ms; bound {gb_ms:.4f} ms ({gb_by})")
+    del tin, gprep, pk, gargs
+    log(f"phase 11a: zncc.cu at tile origin {TILE_ORIGIN} against plain, "
+        f"1600x1184, 8 sources")
+    compare(big, random_planes(big, 1, 114, 0.125, 0.25), None,
+            f"random window+cap full, origin {TILE_ORIGIN}",
+            origin=TILE_ORIGIN)
+    compare(big, true_planes(big, plane_z_big, 8, 115), 0,
+            f"coherent off0=0, origin {TILE_ORIGIN}", origin=TILE_ORIGIN)
+    # ---- phase 11b: a view above tile_pixels over a tile mesh ----
+    mark("11b")
+    log(f"phase 11b: tile_sharded_patchmatch, {TILE_SHAPE[0]}x"
+        f"{TILE_SHAPE[1]}, {TILE_SHAPE[2]} sources, {MESH_MEMBERS} members "
+        f"on {dev}, PatchMatchParams()")
+    tile = run_tile_phase(dev)
     n_sweeps = 2 * params.max_iterations
     n_views = len(fine_scene[0])
     # per view and scale: a first solve, its planar-prior second solve and
@@ -3017,6 +3327,15 @@ def main() -> int:
                                         K)],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None})
+    # geom.cu at the tile origin: launches of phase 11b's tiled geometric
+    # solve, all at origins of their members' grids
+    rows.append({
+        "name": "geom_k8_origin", "route": "cuda",
+        "source": "acmmp_tpu_torch/csrc/geom.cu",
+        "replaces": GEOM_TPU_KERNEL,
+        "launches": tile["launches"]["geometric"]["geom"][8],
+        "max_abs_err": 0.0, "ms": origin_ms, "plain_ms": plain_origin_ms,
+        "bound_ms": gb_ms, "bound_by": gb_by, "library_ms": None})
     rows += ablation_rows
     assert all(math.isfinite(r["ms"]) for r in rows)
     end = time.perf_counter()

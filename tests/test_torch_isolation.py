@@ -41,7 +41,7 @@ assert "acmmp_tpu_torch.ops.cuda_geom" in sys.modules
 assert "acmmp_tpu_torch.ops.cuda_sample" in sys.modules
 for m in ("io.dmb", "io.ply", "io.priors", "utils.log", "engine.fusion",
           "pipeline.scheduler", "pipeline.batched", "parallel.sharding",
-          "cli", "tools.prop_ablate",
+          "parallel.tiles", "cli", "tools.prop_ablate",
           "tools.mosaic_probe", "ops.cuda_ablate", "ops.cuda_probes",
           "io.colmap", "eval.dtu", "eval.obsmask", "eval.stats",
           "experiments.fixtures", "experiments.select_cams",
@@ -79,8 +79,10 @@ def test_chip_smoke_imports_neither_jax_nor_acmmp_tpu():
     # and the tools through their entry points
     assert "acmmp_tpu_torch.tools.prop_ablate" in mods
     assert "acmmp_tpu_torch.tools.mosaic_probe" in mods
-    # and the pipeline through its entry point
+    # and the pipeline through its entry point, on the device mesh too
     assert "acmmp_tpu_torch.pipeline.scheduler" in mods
+    assert "acmmp_tpu_torch.parallel.sharding" in mods
+    assert "acmmp_tpu_torch.parallel.tiles" in mods
     assert not [m for m in mods if m.split(".")[0] in ("jax", "acmmp_tpu")]
 
 
@@ -115,10 +117,17 @@ def test_cuda_backend_on_cpu_tensors_raises():
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
+    from acmmp_tpu_torch.parallel import make_view_mesh
+    from acmmp_tpu_torch.parallel.tiles import make_tile_mesh
+
     assert runtime.DEFAULT_DEVICE == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         runtime.resolve_device()
+    # a mesh of the visible devices: no quiet list of CPUs
+    for make in (make_view_mesh, make_tile_mesh):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
     assert runtime.resolve_device("cpu").type == "cpu"
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32

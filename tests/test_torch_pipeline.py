@@ -172,10 +172,11 @@ def test_geometric_pass_agrees_with_jax(run, tmp_path):
     assert share >= SHARE_WITHIN_1PCT, share
 
 
-def test_cli_friendly_errors(tmp_path, run):
+def test_cli_friendly_errors(tmp_path, run, monkeypatch):
     """A missing or non-dense folder exits 2 (tests/test_pipeline.py::
-    test_cli_friendly_error_on_missing_folder); --mesh is not a flag of
-    the port; `reconstruct --view_batch 2` runs the batched executor on
+    test_cli_friendly_error_on_missing_folder); --mesh asks for the
+    visible CUDA devices and raises without one (no quiet CPU mesh);
+    `reconstruct --view_batch 2` runs the batched executor on
     the file's 64x48 folder (the CLI's default params: one scale), its
     cloud meets the bars of test_pipeline_layout_and_cloud, and the JAX
     package's fusion of its checkpoints writes its PLY bytes."""
@@ -186,9 +187,10 @@ def test_cli_friendly_errors(tmp_path, run):
     with pytest.raises(SystemExit) as e:
         main(["reconstruct", str(tmp_path)])
     assert e.value.code == 2
-    with pytest.raises(SystemExit) as e:
-        main(["reconstruct", run[0], "--mesh"])
-    assert e.value.code == 2
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["reconstruct", run[0], "--mesh"])
     dense = str(tmp_path / "s")
     shutil.copytree(run[0], dense, ignore=shutil.ignore_patterns("ACMMP"))
     assert main(["reconstruct", dense, "--view_batch", "2", "--device",
