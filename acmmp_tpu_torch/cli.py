@@ -20,9 +20,14 @@ run on CUDA unless ``--device`` says otherwise; the others are host code.
 ``--view_batch N`` solves N reference views per launch stream
 (pipeline/batched.py). ``reconstruct --mesh`` shards each batch of views
 over every visible CUDA device, and the rows of a view above
-``tile_pixels`` (parallel/); it raises without a CUDA device. A mesh of
-a repeated device is built in code (parallel.make_view_mesh(devices=...)),
-not on the command line."""
+``tile_pixels`` (parallel/); it raises without a CUDA device. Under the
+variables ``torchrun`` sets it runs one process per host or card, all of
+them one global mesh (parallel/multihost.py), rank 0 writing:
+
+    torchrun --nproc_per_node=2 -m acmmp_tpu_torch.cli reconstruct <dense> --mesh
+
+A mesh of a repeated device is built in code
+(parallel.make_view_mesh(devices=...)), not on the command line."""
 
 from __future__ import annotations
 
@@ -114,7 +119,9 @@ def main(argv=None):
     pr.add_argument("--mesh", action="store_true",
                     help="shard view batches over a device mesh: every "
                          "visible CUDA device (raises without one; "
-                         "--device is then not used)")
+                         "--device is then not used); under torchrun, "
+                         "each process's share of its host's devices, "
+                         "all processes one mesh")
     pr.add_argument("--debug_images", action="store_true",
                     help="write approved_pixels_cam_N.png and "
                          "triangulation.png debug artifacts")
@@ -244,7 +251,10 @@ def main(argv=None):
             cfg = dataclasses.replace(cfg, view_batch=args.view_batch)
         if args.mesh:
             from acmmp_tpu_torch.parallel import make_view_mesh
+            from acmmp_tpu_torch.parallel.multihost import (
+                maybe_init_distributed)
 
+            maybe_init_distributed()   # several processes; no-op in one
             print(run_pipeline(dense, cfg, mesh=make_view_mesh()))
         else:
             print(run_pipeline(dense, cfg, device=args.device))

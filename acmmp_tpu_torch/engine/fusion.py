@@ -27,9 +27,12 @@ Two rules the JAX program gets from XLA and the port states itself:
 On a device mesh (parallel/sharding.py) the views fuse in groups of mesh
 size: member k computes the consistency parts of the group's k-th view
 on its device (project, sample, threshold, score), every member's parts
-issued before any is read, and the greedy consumption chain is replayed
-on the host in the sequential order, so the cloud is the sequential
-one, bit for bit (``_fuse_group_sharded``).
+issued before any is read, the parts are gathered to every rank, and
+the greedy consumption chain is replayed on the host in the sequential
+order, so the cloud is the sequential one, bit for bit
+(``_fuse_group_sharded``). Across processes every rank replays the same
+chain; rank 0 alone writes the PLY and the debug images
+(parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ from acmmp_tpu_torch.io.dense_folder import (
     read_cam_txt, resize_image, result_dir,
 )
 from acmmp_tpu_torch.ops import sample as sample_ops
+from acmmp_tpu_torch.parallel import multihost as mh
+from acmmp_tpu_torch.parallel.sharding import gather_members
 
 
 # ---------------------------------------------------------------------------
@@ -362,8 +367,8 @@ def _collect_accepted(i, rv, src_ids, views, accept, Xw, normal, consumed,
         from PIL import Image as PILImage
 
         os.makedirs(debug_dir, exist_ok=True)
-        PILImage.fromarray((accept * 255).astype(np.uint8)).save(
-            os.path.join(debug_dir, f"approved_pixels_cam_{i}.png"))
+        mh.on_primary(PILImage.fromarray((accept * 255).astype(np.uint8)).save,
+                      os.path.join(debug_dir, f"approved_pixels_cam_{i}.png"))
 
 
 def _np(a):
@@ -404,27 +409,21 @@ def fuse_views(views: Dict[int, FusionView], problems: Sequence[Problem],
             sw=max((views[i].depth.shape[1] for i in all_ids), default=1))
 
     for g0 in range(0, len(probs), len(devices)):
-        asm = [a for a in (
-            _assemble_problem(p, views, prior_aware, dev, **pad)
-            for p, dev in zip(probs[g0:g0 + len(devices)], devices))
-            if a is not None]
-        if not asm:
-            continue
-        if mesh is None or len(asm) == 1:
-            results = []
-            for _i, _rv, _src, kw in asm:
-                if prior_aware:
-                    results.append(_fuse_view_dual(
-                        single_match_penalty=single_match_penalty, fp=fp,
-                        **kw))
-                else:
-                    accept, Xw, consumed = _fuse_view_plain(fp=fp, **kw)
-                    results.append((accept, Xw, None, consumed))
+        group = probs[g0:g0 + len(devices)]
+        if mesh is None:
+            i, rv, src_ids, kw = _assemble_problem(group[0], views,
+                                                   prior_aware, devices[0])
+            if prior_aware:
+                res = _fuse_view_dual(
+                    single_match_penalty=single_match_penalty, fp=fp, **kw)
+            else:
+                accept, Xw, consumed = _fuse_view_plain(fp=fp, **kw)
+                res = (accept, Xw, None, consumed)
+            results = [((i, rv, src_ids), res)]
         else:
-            results = _fuse_group_sharded(asm, prior_aware,
-                                          single_match_penalty, fp)
-        for (i, rv, src_ids, _kw), (accept, Xw, normal, consumed) \
-                in zip(asm, results):
+            results = _fuse_group_sharded(mesh, group, views, prior_aware,
+                                          single_match_penalty, fp, pad)
+        for (i, rv, src_ids), (accept, Xw, normal, consumed) in results:
             _collect_accepted(i, rv, src_ids, views, accept, Xw, normal,
                               consumed, sinks, progress, debug_dir)
     pts_out, nrm_out, col_out = sinks
@@ -435,22 +434,35 @@ def fuse_views(views: Dict[int, FusionView], problems: Sequence[Problem],
             np.concatenate(col_out).astype(np.uint8))
 
 
-def _fuse_group_sharded(asm, prior_aware, single_match_penalty,
-                        fp: FusionParams):
-    """Fuse one group of reference views, each assembled on its member's
-    device: every member's consistency parts (project, sample, threshold,
-    score) are issued before any is read, then the reference's sequential
-    greedy consumption chain is replayed on the host from the parts, so
-    every member sees the mask state of the sequential loop and the
-    results are the sequential fusion's. Returns per member (accept, Xw,
-    normal or None, consumed), numpy."""
-    if prior_aware:
-        parts = [_fuse_view_dual_parts(fp=fp, **kw) for *_h, kw in asm]
-        res = [(_np(v0), _np(v1), tuple(_np(q) for q in p0),
-                tuple(_np(q) for q in p1)) for v0, v1, p0, p1 in parts]
-    else:
-        parts = [_fuse_view_plain_parts(fp=fp, **kw) for *_h, kw in asm]
-        res = [tuple(_np(q) for q in p) for p in parts]
+def _fuse_group_sharded(mesh, group, views, prior_aware,
+                        single_match_penalty, fp: FusionParams, pad):
+    """Fuse one group of reference views (problem k on member k), each of
+    this process's assembled on its member's device at the scene-wide
+    padded shape `pad`: every member's consistency parts (project,
+    sample, threshold, score) are issued before any is read, then
+    gathered to every rank (parallel.sharding.gather_members), and the
+    reference's sequential greedy consumption chain is replayed on the
+    host from the parts, so every member sees the mask state of the
+    sequential loop and the results are the sequential fusion's. Returns
+    per problem ((id, view, source ids), (accept, Xw, normal or None,
+    consumed)), numpy."""
+    mine = {}
+    for m in mesh.local():
+        if m < len(group):
+            *_h, kw = _assemble_problem(group[m], views, prior_aware,
+                                        mesh[m], **pad)
+            if prior_aware:
+                v0, v1, p0, p1 = _fuse_view_dual_parts(fp=fp, **kw)
+                mine[m] = (v0, v1, *p0, *p1)
+            else:
+                mine[m] = _fuse_view_plain_parts(fp=fp, **kw)
+    res = []
+    for parts in gather_members(mesh, mine)[:len(group)]:
+        parts = tuple(_np(q) for q in parts)
+        res.append((*parts[:2], parts[2:7], parts[7:]) if prior_aware
+                   else parts)
+    heads = [(p.ref_image_id, views[p.ref_image_id],
+              [s for s in p.src_image_ids if s in views]) for p in group]
 
     # delta[s]: source pixels of view s consumed by EARLIER members of
     # this group (the consumption before the group is already in the
@@ -494,8 +506,8 @@ def _fuse_group_sharded(asm, prior_aware, single_match_penalty,
         return consumed
 
     out = []
-    for (i, rv, src_ids, kw), r in zip(asm, res):
-        shape = tuple(kw["src_masks"].shape[1:])
+    shape = (pad["sh"], pad["sw"])
+    for (i, rv, src_ids), r in zip(heads, res):
         if prior_aware:
             v0, v1 = ref_delta(i, r[0]), ref_delta(i, r[1])
             Xw0, ok0, dyn0, rr0, cc0 = r[2]
@@ -523,9 +535,18 @@ def _fuse_group_sharded(asm, prior_aware, single_match_penalty,
             nc, dc, tc = sums(ok, dyn)
             accept = valid & (nc >= thr) & (dc > tc)
             normal = None
-        out.append((accept, Xw, normal,
-                    consume(accept, ok, rr, cc, src_ids, shape)))
+        out.append(((i, rv, src_ids),
+                    (accept, Xw, normal,
+                     consume(accept, ok, rr, cc, src_ids, shape))))
     return out
+
+
+def _write_ply_primary(ply_path, pts, nrm, col) -> str:
+    """Every process holds the same cloud; rank 0 writes the PLY, and every
+    process waits for it."""
+    mh.on_primary(write_ply, ply_path, pts, nrm, col)
+    mh.barrier("fusion_ply")
+    return ply_path
 
 
 class LazyFusionViews(Mapping):
@@ -638,9 +659,8 @@ def run_fusion(dense_folder: str, out_folder: str,
     pts, nrm, col = fuse_views(views, problems, fp, progress=progress,
                                debug_dir=debug_dir, device=device,
                                mesh=mesh)
-    ply_path = os.path.join(out_folder, ply_name)
-    write_ply(ply_path, pts, nrm, col)
-    return ply_path
+    return _write_ply_primary(os.path.join(out_folder, ply_name), pts, nrm,
+                              col)
 
 
 def run_prior_aware_fusion(dense_folder: str, out_folder: str,
@@ -663,6 +683,5 @@ def run_prior_aware_fusion(dense_folder: str, out_folder: str,
                                single_match_penalty=single_match_penalty,
                                progress=progress, debug_dir=debug_dir,
                                device=device, mesh=mesh)
-    ply_path = os.path.join(out_folder, ply_name)
-    write_ply(ply_path, pts, nrm, col)
-    return ply_path
+    return _write_ply_primary(os.path.join(out_folder, ply_name), pts, nrm,
+                              col)

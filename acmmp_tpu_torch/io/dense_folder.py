@@ -9,15 +9,21 @@ port's copy of ``acmmp_tpu/io/dense_folder.py``:
 cam.txt parsing mirrors ReadCamera (src/ACMMP.cpp:154-179); pair.txt
 mirrors GenerateSampleList (src/acmmp_definitions.cpp:179-205).
 
-``resize_image`` is the bilinear formula of the JAX package's native host
-library (``an_resize_bilinear_f32`` / ``_u8``), vectorised in numpy with
-the same f64 source coordinates, f32 weights, 4-term f32 sum in the same
-order and, for u8, the same rounding, so both packages rescale an image
-to the same bits. (The JAX package's PIL fallback gives other values.)
+``resize_image`` runs the JAX package's native bilinear formula
+(``an_resize_bilinear_f32`` / ``_u8``) from the port's own copy of its
+source, ``csrc/host_resize.cpp``, built with that library's compiler and
+flags at first use (kernels/_build.py::load_host), so both packages
+rescale an image to the same bits on any host, also where g++ contracts
+the 4-term sum into FMAs. A build failure raises. ``resize_image_plain``
+is the same formula vectorised in numpy (f64 source coordinates, f32
+weights, every product rounded), on no path: it equals the library where
+the compiler does not contract. (The JAX package's PIL fallback gives
+other values.)
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import glob
 import os
@@ -27,6 +33,7 @@ import numpy as np
 from PIL import Image as PILImage
 
 from acmmp_tpu_torch.core.geometry import Camera
+from acmmp_tpu_torch.kernels import _build
 
 
 @dataclasses.dataclass
@@ -202,8 +209,28 @@ def _resize_axis(n_src: int, n_dst: int):
 def resize_image(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
     """Bilinear resize with OpenCV's half-pixel convention (the reference
     uses cv::resize INTER_LINEAR, ACMMP.cpp:187-190); f32 or u8, 2D or 3D
-    (channels last). u8 in gives u8 out, rounded as v + 0.5 truncated;
-    anything else is computed and returned as f32."""
+    (channels last), through csrc/host_resize.cpp. u8 in gives u8 out,
+    rounded as v + 0.5 truncated; anything else is computed and returned
+    as f32."""
+    if img.ndim not in (2, 3):
+        raise ValueError(f"resize_image: a 2D or 3D image, not {img.shape}")
+    lib = _build.load_host("host_resize")
+    is_u8 = img.dtype == np.uint8
+    fn = lib.an_resize_bilinear_u8 if is_u8 else lib.an_resize_bilinear_f32
+    fn.restype = None
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+                   ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+                   ctypes.c_int32]
+    src = np.ascontiguousarray(img, np.uint8 if is_u8 else np.float32)
+    dst = np.empty((new_h, new_w) + img.shape[2:], src.dtype)
+    fn(src.ctypes.data, img.shape[0], img.shape[1], dst.ctypes.data,
+       new_h, new_w, 1 if img.ndim == 2 else img.shape[2])
+    return dst
+
+
+def resize_image_plain(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
+    """resize_image's formula in numpy, every product rounded: the plain
+    version of csrc/host_resize.cpp, on no path."""
     y0, y1, wy = _resize_axis(img.shape[0], new_h)
     x0, x1, wx = _resize_axis(img.shape[1], new_w)
     is_u8 = img.dtype == np.uint8

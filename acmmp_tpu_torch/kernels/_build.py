@@ -9,7 +9,13 @@ repository root (listed in .gitignore); a library's file name carries a
 hash of its source and flags, so an edited source is rebuilt.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3`` and no
-``--use_fast_math`` (the kernels keep IEEE f32 arithmetic)."""
+``--use_fast_math`` (the kernels keep IEEE f32 arithmetic).
+
+Host code (``csrc/<name>.cpp``, the bilinear resize) builds the same way
+with ``g++`` and the JAX package's native flags (``HOST_FLAGS``), so it
+contracts (or not) as that library does on the same machine. Any process
+may build a library while another does: each writes a name of its own
+and renames it into place."""
 
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import platform
 import shutil
 import subprocess
 import threading
@@ -26,6 +33,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_FLAGS = ["-O3", "-fopenmp", "-shared", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -44,9 +53,10 @@ def nvcc_path() -> str:
                        "the port's kernels")
 
 
-def _target(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def _target(name: str, ext: str = "cu",
+            flags=NVCC_FLAGS) -> pathlib.Path:
+    src = (CSRC / f"{name}.{ext}").read_bytes()
+    digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -90,5 +100,33 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(_target(name)))
+            _LIBS[name] = lib
+        return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for the host source csrc/<name>.cpp, built with
+    g++ and HOST_FLAGS at first use, one per machine architecture; raises
+    if it does not build."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            # host code: the checkout may be shared by hosts of several
+            # architectures
+            target = _target(name, "cpp", HOST_FLAGS + [platform.machine()])
+            if not target.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run(
+                    ["g++", *HOST_FLAGS, "-o", str(tmp),
+                     str(CSRC / f"{name}.cpp")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed for csrc/{name}.cpp "
+                                       f"(rc {proc.returncode}):\n"
+                                       f"{proc.stdout}")
+                os.replace(tmp, target)
+            lib = ctypes.CDLL(str(target))
             _LIBS[name] = lib
         return lib

@@ -13,10 +13,11 @@ semantics are the same: each view gets its own key schedule and its own
 results, those of its single-view solve.
 
 With a mesh (parallel/sharding.py) the batch is padded to a multiple of
-the mesh size by repeating its last problem (pad_to_multiple), and
-member m solves the m-th chunk of the padded batch on its device, the
-members in lock-step (parallel.sharding.view_sharded_solve); the
-padding's results are dropped. A geometric pass on a mesh takes its
+the global mesh size by repeating its last problem (pad_to_multiple),
+and member m solves the m-th chunk of the padded batch on its device,
+each process's members in lock-step (parallel.sharding.
+view_sharded_solve); every rank receives every member's results, and
+the padding's are dropped. A geometric pass on a mesh takes its
 source depth maps from the pass's bank: each member gathers its own
 problems' maps onto its device
 (parallel.sharding.view_sharded_geometric_solve)."""
@@ -59,7 +60,8 @@ class BatchedSolver:
                     ) -> List[SolverOutputs]:
         """Solve a batch of same-shape problems, one key each; returns
         per-view outputs (views of the batch's tensors, padding replicas
-        dropped; on a mesh each on its member's device). The per-view
+        dropped; on a mesh this process's members' on their devices, the
+        other processes' on the host). The per-view
         stage keys are derived as the JAX executor derives them (split,
         then fold_in per sweep: engine.patchmatch.run_patchmatch_batch),
         so a seed gives the same reconstruction in every executor

@@ -143,6 +143,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      / 8-source view (above tile_pixels) solved with its rows over a
      tile mesh, photometric and geometric, torch.equal to the untiled
      solve, 13 ZNCC launches per member (9 geom), walls of both;
+  12. (run after 11c) two processes on this card, one global mesh of two
+     members (parallel/multihost.py): `python -m acmmp_tpu_torch.cli
+     reconstruct <folder> --mesh` started twice with the torchrun
+     variables (both own cuda:0), on a copy of phase 8b's folder (views
+     0-4) with 11c's cut (planar_prior_max_pixels); the yardstick is
+     run_pipeline in this process on another copy over a single-process
+     mesh of cuda:0 twice. Every .dmb file, pass marker and the PLY are
+     byte-equal, rank 1 wrote no file (each rank counts its writes and
+     logs the count), each rank's zncc.cu launches are 13 per solve of
+     its own member, the cloud meets phase 8's bars; a child that exits
+     non-zero or outlives PHASE12_TIMEOUT_S fails the phase; the walls of
+     both runs and each rank's are printed;
 then the kernel table as one JSON line, the card line and the result
 line. Lines near the start say which of cv2, matplotlib, PIL and scipy
 import here, and how long read_png takes on 1600x1200 normal priors that
@@ -332,6 +344,10 @@ TILE_SHAPE = (3200, 2368, 8)        # width, height, sources: 7.58 MP
 # script runs phase 8's schedule three times (8, 8b, 11c)
 PHASE11C_PRIOR_MAX_PIXELS = 1_000_000
 TILE_ORIGIN = (568, 0)
+# phase 12: two processes on the card, one member each; a child still
+# running after this many seconds is killed and fails the phase
+PHASE12_RANKS = 2
+PHASE12_TIMEOUT_S = 420
 
 TPU_KERNEL = {1: "acmmp_tpu/ops/pallas_ncc.py:108",
               2: "acmmp_tpu/ops/pallas_ncc.py:542",
@@ -1464,6 +1480,172 @@ def run_mesh_pipeline_phase(dense, scene, dev, phase8):
     assert f_share > FUSED_SHARE_BAR, f_share
     assert ply_equal
     return {"launches": launches, "wall": wall, "points": len(pts)}
+
+
+def run_multiprocess_phase(dense_b, scene, dev, phase8):
+    """Phase 12: two processes on this card through the product surface.
+    Two copies of phase 8b's dense folder (its images, cams and pair.txt):
+    on one, `python -m acmmp_tpu_torch.cli reconstruct --mesh` runs as
+    PHASE12_RANKS processes under the torchrun variables (a free
+    localhost port, LOCAL_WORLD_SIZE = PHASE12_RANKS: more processes than
+    cards, so each owns cuda:0 and the global mesh has one member a
+    process); on the other run_pipeline runs in this process over the
+    single-process mesh of `dev` repeated PHASE12_RANKS times, with the
+    CLI's config (PHASE11C_PRIOR_MAX_PIXELS). Every output file must be
+    byte-equal, rank 1 must have written nothing, each rank's zncc.cu
+    launches 13 per solve of its own member, and the cloud meets phase
+    8's bars. Each rank logs its rank, the files it wrote and its launches
+    (run_pipeline's last line), read here from its output."""
+    import re
+    import socket
+
+    import torch
+
+    from acmmp_tpu_torch.config import PipelineConfig
+    from acmmp_tpu_torch.io import read_ply
+    from acmmp_tpu_torch.ops import cuda_geom, cuda_ncc, cuda_sample
+    from acmmp_tpu_torch.parallel import make_view_mesh, multihost
+    from acmmp_tpu_torch.pipeline import scheduler
+
+    images, _cams, plane_z = scene
+    n_views = len(images)
+    H, W = images[0].shape
+    work = os.path.dirname(dense_b)
+    dense = {}
+    for k in ("two", "one"):
+        dense[k] = os.path.join(work, f"dense_12_{k}")
+        os.makedirs(dense[k])
+        for name in ("images", "cams"):
+            shutil.copytree(os.path.join(dense_b, name),
+                            os.path.join(dense[k], name))
+        shutil.copy(os.path.join(dense_b, "pair.txt"), dense[k])
+    argv = ["reconstruct", dense["two"], "--mesh",
+            "--planar_prior_max_pixels", str(PHASE11C_PRIOR_MAX_PIXELS)]
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(PHASE12_RANKS):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                   RANK=str(r), WORLD_SIZE=str(PHASE12_RANKS),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(PHASE12_RANKS),
+                   PYTHONPATH=repo)
+        out = open(os.path.join(work, f"rank{r}.log"), "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "acmmp_tpu_torch.cli", *argv], cwd=repo,
+            env=env, stdout=out, stderr=subprocess.STDOUT), out))
+    ends = [None] * PHASE12_RANKS
+    try:
+        while None in ends:
+            for r, (p, _) in enumerate(procs):
+                if ends[r] is None and p.poll() is not None:
+                    ends[r] = time.perf_counter()
+            if time.perf_counter() - t0 > PHASE12_TIMEOUT_S:
+                raise RuntimeError(f"phase 12: a rank still runs after "
+                                   f"{PHASE12_TIMEOUT_S} s")
+            time.sleep(0.05)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    two_wall = max(ends) - t0
+    texts = []
+    for r, (p, out) in enumerate(procs):
+        out.seek(0)
+        texts.append(out.read())
+        out.close()
+        if p.returncode != 0:
+            log(texts[r][-6000:])
+            raise RuntimeError(f"phase 12: rank {r} exited {p.returncode}")
+
+    # the yardstick: the CLI's config, a single-process mesh of the same
+    # members, in this process
+    cfg = PipelineConfig(planar_prior_max_pixels=PHASE11C_PRIOR_MAX_PIXELS)
+    counters = {"zncc": cuda_ncc, "geom": cuda_geom, "sample": cuda_sample}
+    for c in counters.values():
+        c.reset_launch_counts()
+    written = multihost.files_written
+    t1 = time.perf_counter()
+    mesh = make_view_mesh(devices=[dev] * PHASE12_RANKS)
+    ply = scheduler.run_pipeline(dense["one"], cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t1
+    written = multihost.files_written - written
+    one_launches = {k: c.total_launches() for k, c in counters.items()}
+
+    pattern = re.compile(r"rank (\d+) of (\d+): (\d+) files written; "
+                         r"launches zncc (\d+), geom (\d+), sample (\d+)")
+    ranks = []
+    for r, text in enumerate(texts):
+        found = pattern.findall(text)
+        assert len(found) == 1, (r, text[-3000:])
+        rank, world, files, zncc, geom, sample = map(int, found[0])
+        pipe_s = re.findall(r"pipeline: \d+ solves in ([\d.]+)s", text)
+        ranks.append({"rank": rank, "world": world, "files": files,
+                      "zncc": zncc, "geom": geom, "sample": sample,
+                      "wall": ends[r] - t0, "pipeline_s": pipe_s})
+    trees = {}
+    for k in ("two", "one"):
+        root = os.path.join(dense[k], "ACMMP")
+        trees[k] = {}
+        for d, _, files in os.walk(root):
+            for f in files:
+                with open(os.path.join(d, f), "rb") as fh:
+                    trees[k][os.path.relpath(os.path.join(d, f), root)] = \
+                        fh.read()
+    differ = sorted(k for k in set(trees["two"]) | set(trees["one"])
+                    if trees["two"].get(k) != trees["one"].get(k))
+    n_dmb = sum(k.endswith(".dmb") for k in trees["one"])
+    n_marks = sum(".pass_" in k for k in trees["one"])
+    # per pass ceil(n / 2) batches of two, one problem per member each;
+    # per batch a first solve and two geometric solves at each scale and
+    # the coarse scale's planar-prior second solve (phase 11c's count)
+    batches = -(-n_views // PHASE12_RANKS)
+    solves, geom_solves = 7 * batches, 4 * batches
+    n_sweeps = 2 * cfg.patchmatch.max_iterations
+    want_zncc = solves * (1 + 3 * n_sweeps)
+    want_geom = geom_solves * (1 + 2 * n_sweeps)
+    pts, _, _ = read_ply(ply)
+    err = np.abs(pts[:, 2] - plane_z)
+    f_med, f_share = float(np.median(err)), float((err < 0.5).mean())
+    log(f"  {PHASE12_RANKS} processes on {dev}, one member each: wall "
+        f"{two_wall:.2f} s (ranks: "
+        + ", ".join(f"rank {x['rank']} {x['wall']:.2f} s, pipeline "
+                    f"{x['pipeline_s']} s" for x in ranks)
+        + f"); single-process mesh of {PHASE12_RANKS} members in this "
+        f"process {one_wall:.2f} s; phase 8 {phase8['wall']:.2f} s")
+    log("  ranks: " + "; ".join(
+        f"rank {x['rank']} of {x['world']}: {x['files']} files written, "
+        f"launches zncc {x['zncc']} geom {x['geom']} sample {x['sample']}"
+        for x in ranks)
+        + f" (want zncc {want_zncc}, geom {want_geom} each); single "
+        f"process: {written} files written, launches {one_launches}")
+    log(f"  files: {len(trees['one'])} ({n_dmb} .dmb, {n_marks} markers, "
+        f"PLY), byte-equal: {not differ}; fused points {len(pts)} "
+        f"(phase 8: {phase8['points']}); median |z - plane| {f_med:.6f} "
+        f"(bar {FUSED_MEDIAN_BAR}), share < 0.5 {f_share:.5f} (bar "
+        f"{FUSED_SHARE_BAR})")
+    assert not differ, differ[:10]
+    assert sorted(trees["two"]) == sorted(trees["one"])
+    assert n_dmb == 4 * n_views and n_marks == 6 * n_views, (n_dmb, n_marks)
+    assert [x["rank"] for x in ranks] == list(range(PHASE12_RANKS))
+    assert all(x["world"] == PHASE12_RANKS for x in ranks)
+    assert ranks[0]["files"] == written > 0, (ranks[0]["files"], written)
+    assert all(x["files"] == 0 for x in ranks[1:]), ranks
+    for x in ranks:
+        assert x["zncc"] == want_zncc, (x, want_zncc)
+        assert x["geom"] == want_geom, (x, want_geom)
+    assert one_launches["zncc"] == PHASE12_RANKS * want_zncc, one_launches
+    assert np.isfinite(pts).all()
+    assert len(pts) >= FUSED_MIN_VIEW_SHARE * H * W, len(pts)
+    assert f_med < FUSED_MEDIAN_BAR, f_med
+    assert f_share > FUSED_SHARE_BAR, f_share
+    for k in dense.values():
+        shutil.rmtree(k)
+    return {"wall": two_wall, "one_wall": one_wall, "ranks": ranks}
 
 
 def time_ms(fn, reps):
@@ -3181,9 +3363,9 @@ def main() -> int:
         f"PipelineConfig(view_batch=4)")
     scene_b = (fine_scene[0][:PHASE8B_VIEWS], fine_scene[1][:PHASE8B_VIEWS],
                fine_scene[2])
-    pipe_b = run_batched_pipeline_phase(
-        write_dense_folder(os.path.join(work, "dense_b"), *scene_b[:2]),
-        scene_b, dev, pipe)
+    dense_b = write_dense_folder(os.path.join(work, "dense_b"),
+                                 *scene_b[:2])
+    pipe_b = run_batched_pipeline_phase(dense_b, scene_b, dev, pipe)
     # ---- phase 11c: the same folder over a view mesh on this card ----
     mark("11c")
     log(f"phase 11c: run_pipeline on phase 8's dense folder over a view "
@@ -3191,6 +3373,14 @@ def main() -> int:
         f"planar_prior_max_pixels={PHASE11C_PRIOR_MAX_PIXELS})")
     run_mesh_pipeline_phase(pipe["dense"], fine_scene, dev, pipe)
     shutil.rmtree(pipe["dense"])
+    # ---- phase 12: two processes on this card, one global mesh ----
+    mark("12")
+    log(f"phase 12: {PHASE12_RANKS} processes of `acmmp_tpu_torch.cli "
+        f"reconstruct --mesh` on {dev} (views 0-{PHASE8B_VIEWS - 1}, "
+        f"planar_prior_max_pixels={PHASE11C_PRIOR_MAX_PIXELS}) against "
+        f"run_pipeline over a single-process mesh of {PHASE12_RANKS} "
+        f"members")
+    run_multiprocess_phase(dense_b, scene_b, dev, pipe)
     # ---- phase 10: the rest of the CLI and the DTU method grid ----
     mark("10")
     run_dtu_grid_phase(work, dev)

@@ -41,7 +41,8 @@ assert "acmmp_tpu_torch.ops.cuda_geom" in sys.modules
 assert "acmmp_tpu_torch.ops.cuda_sample" in sys.modules
 for m in ("io.dmb", "io.ply", "io.priors", "utils.log", "engine.fusion",
           "pipeline.scheduler", "pipeline.batched", "parallel.sharding",
-          "parallel.tiles", "cli", "tools.prop_ablate",
+          "parallel.tiles", "parallel.multihost", "kernels._build", "cli",
+          "tools.prop_ablate",
           "tools.mosaic_probe", "ops.cuda_ablate", "ops.cuda_probes",
           "io.colmap", "eval.dtu", "eval.obsmask", "eval.stats",
           "experiments.fixtures", "experiments.select_cams",
@@ -58,6 +59,33 @@ def test_package_imports_neither_jax_nor_acmmp_tpu():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_RESIZE_CHILD = r"""
+import sys
+import numpy as np
+from acmmp_tpu_torch.io import dense_folder
+from acmmp_tpu_torch.kernels import _build
+out = dense_folder.resize_image(np.arange(48, dtype=np.float32).reshape(6, 8),
+                                4, 3)
+assert out.shape == (3, 4) and out.dtype == np.float32, out
+lib = _build._LIBS["host_resize"]
+assert lib._name.startswith(str(_build.BUILD_DIR)), lib._name
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "acmmp_tpu"
+             or m.startswith("acmmp_tpu."))
+assert not bad, bad
+"""
+
+
+def test_host_resize_library_is_the_ports_own():
+    """The resize's host library is built from the port's own source into
+    build/torch_kernels/ and loads without JAX or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _RESIZE_CHILD], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
@@ -83,6 +111,8 @@ def test_chip_smoke_imports_neither_jax_nor_acmmp_tpu():
     assert "acmmp_tpu_torch.pipeline.scheduler" in mods
     assert "acmmp_tpu_torch.parallel.sharding" in mods
     assert "acmmp_tpu_torch.parallel.tiles" in mods
+    # and across processes, through the CLI (phase 12)
+    assert "acmmp_tpu_torch.parallel.multihost" in mods
     assert not [m for m in mods if m.split(".")[0] in ("jax", "acmmp_tpu")]
 
 
