@@ -6,7 +6,8 @@ a plain C interface and loaded with ctypes. Pointers and the stream pass as
 ``torch.cuda.current_stream().cuda_stream``). The build runs at first use,
 from the sources in the checkout, into ``build/torch_kernels/`` at the
 repository root (listed in .gitignore); a library's file name carries a
-hash of its source and flags, so an edited source is rebuilt.
+hash of its source, of the headers in ``csrc/`` (``*.cuh``) and of its
+flags, so an edited source or header is rebuilt.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3`` and no
 ``--use_fast_math`` (the kernels keep IEEE f32 arithmetic).
@@ -56,6 +57,9 @@ def nvcc_path() -> str:
 def _target(name: str, ext: str = "cu",
             flags=NVCC_FLAGS) -> pathlib.Path:
     src = (CSRC / f"{name}.{ext}").read_bytes()
+    if ext == "cu":
+        # the headers a kernel may include (csrc/*.cuh)
+        src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

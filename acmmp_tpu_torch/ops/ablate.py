@@ -3,19 +3,19 @@ csrc/ablate.cu computes for each mode, and what it is held against.
 
 The JAX package's ``tools/prop_ablate.py`` times a replica of its TPU
 K-stack kernel with parts of the work switched off, to find where the
-kernel's time goes. The first design of ``csrc/zncc.cu``, which
-csrc/ablate.cu keeps frozen, is shaped differently: it has no row scan
-and no bounding boxes, only a per-tap placement (homography, reciprocal,
-NaN guard, clamps, floors; ``place`` and ``sample`` in csrc/ablate.cu),
-four dependent byte reads, and the bilinear and moment arithmetic of the
-tap loop. So each mode keeps the TPU tool's name, so that a reader can
-find its counterpart, and takes the meaning that asks the same question
-of that design's structure (the redesigned zncc.cu computes the same
-costs, bitwise, another way):
+kernel's time goes. csrc/zncc.cu is shaped differently: it has no row
+scan and no bounding boxes, only a per-tap placement (homography step,
+reciprocal, NaN guard, clamps, floors; ``place`` in csrc/zncc_tap.cuh),
+one 2x2 word gather, and the bilinear, centring and moment arithmetic of
+the tap loop. So each mode keeps the TPU tool's name, so that a reader
+can find its counterpart, and takes the meaning that asks the same
+question of zncc.cu's structure:
 
-  full      the first design's K-stack, unchanged (TPU: the shipped
-            kernel).
-  noext     placement and the four reads per tap kept; no bilinear
+  first     zncc.cu's first design, frozen: the same costs as full,
+            computed another way (four byte reads per tap); its plain
+            version is full's.
+  full      zncc.cu K = 8 as it is (TPU: the shipped kernel).
+  noext     placement and the word gather per tap kept; no bilinear
             weights, centring or moments: s_src += w_t * (v00 + v01 + v10
             + v11). The centre sample c_src is still taken and seeds
             s_src2, which no tap updates, so that only per-tap work is
@@ -25,16 +25,19 @@ costs, bitwise, another way):
             tap 0's integer corner + (di_t - di_0, dj_t - dj_0), clamped
             to the view, with tap 0's fractions (TPU: per-tap bounding-box
             reductions only at tap 0).
-  noscan    no source reads: every sample is 0; the read offsets stay live
-            through a 1e-30 leak of their sum into the output (TPU: scan
-            trip count 0, bounds kept live by the same leak).
+  noscan    no gather: every sample is 0; the placement stays live
+            through a 1e-30 leak into the output of the sum of the word
+            offsets (y0 * Ws + x0) of the centre read and every tap's, one
+            sum per (hypothesis, pixel, view) (TPU: scan trip count 0,
+            bounds kept live by the same leak).
   f32take   full, reading the sources widened to f32 (TPU: gathers on
             f32-bitcast words); bitwise equal to full.
 
-So full - noscan is the reads, full - noext the bilinear and moment
-arithmetic, full - nobounds the per-tap placement, and f32take - full
-the cost of u8 against f32 reads. Every function takes parity-packed
-planes [K, Hg, W, 4] and returns [K, Hg, W, V], the port's ZNCC layout.
+So full - noscan is the gather, full - noext the bilinear, centring and
+moment arithmetic, full - nobounds the per-tap placement, and f32take -
+full the cost of 16-byte f32 quads against 32-bit words of bytes. Every
+function takes parity-packed planes [K, Hg, W, 4] and returns [K, Hg, W,
+V], the port's ZNCC layout.
 """
 
 from __future__ import annotations
@@ -48,17 +51,18 @@ from acmmp_tpu_torch.config import PatchMatchParams
 from acmmp_tpu_torch.ops import ncc as ncc_ops
 from acmmp_tpu_torch.ops import parity
 
-MODES = ("full", "noext", "nobounds", "noscan", "f32take")
+MODES = ("first", "full", "noext", "nobounds", "noscan", "f32take")
 # noscan's leak per unit of summed read offset (prop_ablate.py:337-344)
 LEAK = 1e-30
 
 # Parameters under which a mode's costs rest on the sums it keeps. At the
 # shipped min_var and cost_max they do not: noext's s_src sums four raw
 # values per tap, so var_src = s_src2 / sum_w - mean_src^2 is negative on
-# every pixel and every cost is cost_max; noscan's leak (below 5e-21) is
-# under f32's resolution at cost_max. With no variance floor and no cap,
-# noext's cost is clip(1 + mean_ref * mean_src / 1e-15, 0, inf), linear in
-# s_src wherever mean_ref > 0; with cost_max = 0, noscan's cost is its leak.
+# every pixel and every cost is cost_max; noscan's leak (below 1e-22 at
+# 1600x1184) is under f32's resolution at cost_max. With no variance
+# floor and no cap, noext's cost is clip(1 + mean_ref * mean_src / 1e-15,
+# 0, inf), linear in s_src wherever mean_ref > 0; with cost_max = 0,
+# noscan's cost is its leak.
 EXPOSING = {"noext": {"min_var": -math.inf, "cost_max": math.inf},
             "noscan": {"cost_max": 0.0}}
 
@@ -76,8 +80,8 @@ def ablate_packed(mode: str, ref_img, src_imgs, vg: ncc_ops.ViewGeometry,
     planes [K, H // 2, W, 4] -> costs [K, H // 2, W, V]."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if mode in ("full", "f32take"):
-        src = src_imgs if mode == "full" else widen_sources(src_imgs)
+    if mode in ("first", "full", "f32take"):
+        src = widen_sources(src_imgs) if mode == "f32take" else src_imgs
         return ncc_ops.multiview_zncc_packed(
             ref_img, src, vg, planes,
             dataclasses.replace(params, ncc_backend="plain"), off0)
@@ -140,14 +144,14 @@ def source_sums(mode: str, ref_img, src_imgs, vg: ncc_ops.ViewGeometry,
     if mode != "noscan":
         c_src = ncc_ops.sample_views(src_imgs, cx, cy, sw, sh)
 
-    def read_offsets(sx, sy):
-        # the four offsets a read would use (ablate.cu's y * Ws + x)
-        x0, y0, x1, y1, _, _ = ncc_ops.place_views(sx, sy, sw, sh)
-        return (y0 * Ws + x0) + (y1 * Ws + x0) + (y0 * Ws + x1) + (
-            y1 * Ws + x1)
+    def read_offset(sx, sy):
+        # the offset of the 2x2 word a read would gather (ablate.cu's
+        # y0 * Ws + x0 within the view)
+        x0, y0, _, _, _, _ = ncc_ops.place_views(sx, sy, sw, sh)
+        return y0 * Ws + x0
 
     if mode == "noscan":
-        offsets = read_offsets(cx, cy)      # the centre sample's reads
+        offsets = read_offset(cx, cy)       # the centre sample's word
     elif mode == "nobounds":
         di0, dj0, _ = taps[0]
         x00, y00, _, _, fx, fy = ncc_ops.place_views(
@@ -167,7 +171,7 @@ def source_sums(mode: str, ref_img, src_imgs, vg: ncc_ops.ViewGeometry,
         sum_w = sum_w + weight
         if mode == "noscan":
             # the samples are 0, so are the moments
-            offsets = offsets + read_offsets(*warp(float(di), float(dj)))
+            offsets = offsets + read_offset(*warp(float(di), float(dj)))
             continue
         if mode == "noext":
             x0, y0, x1, y1, _, _ = ncc_ops.place_views(
@@ -189,8 +193,8 @@ def source_sums(mode: str, ref_img, src_imgs, vg: ncc_ops.ViewGeometry,
 
     leak = 0.0
     if mode == "noscan":
-        # one unsigned 32-bit sum per (pixel, view) over every hypothesis
-        # and read, as the kernel keeps it
-        acc = torch.remainder(offsets.sum(0), 2 ** 32)
+        # one unsigned 32-bit sum per (hypothesis, pixel, view) over its
+        # reads, as the kernel's thread keeps it
+        acc = torch.remainder(offsets, 2 ** 32)
         leak = LEAK * acc.to(torch.float32)
     return (sum_w, sum_ref, sum_ref_ref, s_src, s_src2, s_rs), in_bounds, leak

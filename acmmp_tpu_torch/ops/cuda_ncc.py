@@ -224,7 +224,12 @@ def prepare(ref_img: torch.Tensor, src_imgs: torch.Tensor,
 def _lib():
     from acmmp_tpu_torch.kernels import _build
 
-    lib = _build.load("zncc")
+    return bind(_build.load("zncc"))
+
+
+def bind(lib):
+    """`lib`, a loaded build of csrc/zncc.cu, with the argument types of
+    its C entries set."""
     fn = lib.acmmp_zncc_launch
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -255,14 +260,17 @@ def occupancy(K: int, T: int, src_type: str = "u8", batched: bool = False):
 def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
                         params: PatchMatchParams, origin=None,
                         row_pack_off=None, n_views=None,
-                        prep: Optional[ZnccPrep] = None) -> torch.Tensor:
+                        prep: Optional[ZnccPrep] = None,
+                        lib=None) -> torch.Tensor:
     """Per-view ZNCC costs through the kernel: planes [K, Hg, W, 4] (or
     [Hg, W, 4]) -> [K, Hg, W, V] (or [Hg, W, V]); Hg = H, or H // 2 with
     parity packing (`row_pack_off` = off0). For a batch (ref_img
     [B, H, W], src_imgs [B, V, Hs, Ws], vg of the B views), planes
     [K, B, Hg, W, 4] (or [B, Hg, W, 4]) -> [K, B, Hg, W, V] (or
     [B, Hg, W, V]). `n_views`: a host int, or for a batch a sequence of B
-    host ints (kernels.view_counts)."""
+    host ints (kernels.view_counts). `lib`: another build of the kernel
+    with the same C entry, bound by `bind` (chip_smoke.py --against times
+    another checkout's this way); by default this checkout's."""
     batched = ref_img.ndim == 3
     if not batched:
         if prep is None:
@@ -325,7 +333,7 @@ def multiview_zncc_cuda(ref_img, src_imgs, vg: ncc_ops.ViewGeometry, planes,
     out = torch.empty((K, B, Hg, W, V), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _lib().acmmp_zncc_launch(
+        rc = (lib or _lib()).acmmp_zncc_launch(
             K, int(f32), planes.data_ptr(), src.data_ptr(),
             prep.w_taps.data_ptr(), prep.wr_taps.data_ptr(),
             prep.refsums.data_ptr(), prep.consts.data_ptr(),

@@ -108,4 +108,4 @@ def _nearest_views(src_depths, u, v, sw, sh):
     base = (torch.arange(src_depths[..., 0, 0].numel(),
                          device=src_depths.device)
             * (Hs * Ws)).reshape(lead + (1, 1, src_depths.shape[-3]))
-    return src_depths.reshape(-1)[base + yi * Ws + xi]
+    return ncc_ops.take(src_depths.reshape(-1), base + yi * Ws + xi)

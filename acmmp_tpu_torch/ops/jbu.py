@@ -96,7 +96,8 @@ def _make_sampler(coarse: torch.Tensor, fine_shape):
     flat = coarse.reshape((-1,) + channels)
 
     def sample_gather(j, i, ry, rx):
-        return flat[(ry * Wc + rx).reshape(-1)].reshape((H, W) + channels)
+        return flat.index_select(0, (ry * Wc + rx).reshape(-1)).reshape(
+            (H, W) + channels)
 
     return sample_gather
 

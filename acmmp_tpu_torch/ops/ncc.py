@@ -187,8 +187,17 @@ def gather_views(src_imgs, x0, y0, x1, y1):
     base = (torch.arange(src_imgs[..., 0, 0].numel(), device=src_imgs.device)
             * (Hs * Ws)).reshape(lead + (1, 1, src_imgs.shape[-3]))
     flat = src_imgs.reshape(-1)
-    return (flat[base + y0 * Ws + x0], flat[base + y0 * Ws + x1],
-            flat[base + y1 * Ws + x0], flat[base + y1 * Ws + x1])
+    r0 = base + y0 * Ws
+    r1 = base + y1 * Ws
+    return (take(flat, r0 + x0), take(flat, r0 + x1), take(flat, r1 + x0),
+            take(flat, r1 + x1))
+
+
+def take(flat, idx):
+    """flat[idx] for a 1-D `flat` and non-negative int64 `idx`, through
+    index_select: the same values, several times faster on the CPU than
+    advanced indexing."""
+    return flat.index_select(0, idx.reshape(-1)).reshape(idx.shape)
 
 
 def warper(x, y, vg: ViewGeometry, planes):

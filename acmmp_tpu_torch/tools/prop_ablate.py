@@ -1,24 +1,24 @@
-"""Cost decomposition of the ZNCC kernel's first design (csrc/zncc.cu as
-first written, frozen in csrc/ablate.cu) on the GPU — the port of the
-JAX package's ``tools/prop_ablate.py``.
+"""Cost decomposition of the ZNCC kernel (csrc/zncc.cu) on the GPU, the
+port of the JAX package's ``tools/prop_ablate.py``.
 
 It times the K = 8 propagation stack, the solver's most expensive call,
-in five modes of csrc/ablate.cu that switch parts of the per-tap work off
-(ops/ablate.py says what each keeps), on a stand-in converged field: the
-relief scene's ground-truth surface planes and 8 neighbour-shifted copies
-of them as the propagation candidates, offsets (0, +-1), (0, +-5),
-(+-1, 0), (+-5, 0), parity-packed as a half-sweep scores them:
+in the six modes of csrc/ablate.cu (ops/ablate.py says what each keeps),
+on a stand-in converged field: the relief scene's ground-truth surface
+planes and 8 neighbour-shifted copies of them as the propagation
+candidates, offsets (0, +-1), (0, +-5), (+-1, 0), (+-5, 0), parity-packed
+as a half-sweep scores them:
 
-  full      the first design's arithmetic, unchanged
-  noext     no bilinear weights, centring or moments per tap
+  first     zncc.cu's first design, frozen (its yardstick)
+  full      zncc.cu K = 8 as it is
+  noext     no bilinear, centring or moments per tap
   nobounds  the per-tap placement only at tap 0
-  noscan    no source reads
-  f32take   full on f32 sources; runs only if the f32 gather probe
-            (nan_take_probe) keeps every bit pattern
+  noscan    no source gather
+  f32take   full on f32 quads of the sources; runs only if the f32 gather
+            probe (nan_take_probe) keeps every bit pattern
 
     python -m acmmp_tpu_torch.tools.prop_ablate [--height 1184 --width 1600
-        --views 8] [--reps 3] [--modes full,noext,nobounds,noscan,f32take]
-        [--device cuda]
+        --views 8] [--reps 3] [--modes first,full,noext,nobounds,noscan,
+        f32take] [--device cuda]
 
 It runs on CUDA unless ``--device cpu`` is given (there the plain
 versions run, for a check of the path at a small size). On CUDA it

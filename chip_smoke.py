@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (acmmp_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against TREE]
+
+With --against, TREE is the root of another checkout (for example the
+parent commit unpacked with git archive): its csrc/zncc.cu is built with
+this checkout's flags, its tap-loop SASS held to this one's, and phase 6
+times it in turns against this checkout's at every K on the 1600x1184
+8-bit field (the two outputs torch.equal, this one's time within 1% of
+it).
 
 Phases, each of which fails the run (non-zero exit) if it fails:
   1. require a CUDA device; print the card's name and power limit;
@@ -11,7 +18,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      on the parity-packed grid, coherent and random planes under both
      random laws, a padded view slot, K-stacks bitwise equal to K
      separate K=1 launches, every packed K=8 stack bitwise equal to
-     the kernel's first design (csrc/ablate.cu `full`), and the kernel's
+     the kernel's first design (csrc/ablate.cu `first`), and the kernel's
      float-source instantiation on these u8-valued floats bitwise equal
      to its 8-bit one; then again at the main paths' own shapes
      (1600x1184 and 800x592, 8 sources, K=8 coherent and random under
@@ -20,7 +27,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      through the kernel: the same checks on real-valued sources at
      320x240 / 4 sources (+1 padded slot) and 1600x1184 / 8 sources (the
      K=8 stacks bitwise equal to the first design on f32 sources,
-     csrc/ablate.cu `f32take`), the 96x64 relief solve at
+     csrc/ablate.cu `first` on floats), the 96x64 relief solve at
      tests/test_relief.py's bars, and a 320x240 solve, kernel against
      plain version, at phase 4's bar;
   3f. (run after 3c) the batched launches, one launch for B = 3
@@ -89,28 +96,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      1): its launches (one solve's per batch), stage walls and the cloud
      at phase 8's bars;
   9. (run after 6) the ZNCC cost decomposition and the lane probes:
-     the six probes of csrc/probes.cu bitwise against their plain
-     versions and numpy, on the probe tool's words and on
-     nan_take_probe's adversarial ones, timed beside torch.gather /
-     torch.where; prop_ablate's converged relief field built at its
-     defaults (1600x1184, 8 sources) and its main path run (the f32
-     gather probe, every ablation mode timed, then mosaic_probe) with the
-     launch counts reset; then, on that field and on phase 6's random
-     K=8 field, each mode of csrc/ablate.cu against its plain version
-     (full bitwise equal to zncc.cu K=8, f32take bitwise equal to full,
-     nobounds at the ZNCC bar, noext and noscan within 1e-5 (1 + |x|)),
-     timed, zncc.cu K=8 timed in turns against `full` (it must beat it
-     here too), and the decomposition of the first design printed (loads
-     = full - noscan, bilinear and moments = full - noext, per-tap
-     placement = full - nobounds, u8 against f32 reads = f32take - full);
-     last, each mode's and each zncc.cu K's ptxas registers and SASS
-     counts (cuobjdump): loads, reciprocals, conversions (I2F, F2I, FRND),
-     PRMT, LDS, stores and local memory, with zncc.cu's tap loop held to
-     one 32-bit source word (one 16-byte quad on float sources), one
-     MUFU.RCP and no conversion or local memory per (hypothesis, tap) at
-     every K, and geom.cu's view loop to 6 MUFU.RCP per (hypothesis,
-     view), its stores (one 16-byte store per four views where V is a
-     multiple of 4) and no local memory;
+     (9a) the six probes of csrc/probes.cu bitwise against their plain
+     versions and numpy, on the probe tool's words
+     and on nan_take_probe's adversarial ones, each timed beside
+     torch.gather / torch.where twice: device time per launch (launches
+     queued behind a sleep) and time per call (back to back); (9b)
+     prop_ablate's converged relief field built at its defaults
+     (1600x1184, 8 sources) and its main path run (the f32 gather probe,
+     every ablation mode timed, then mosaic_probe) with the launch counts
+     reset; (9d) each mode's and each zncc.cu K's ptxas registers and
+     SASS counts (cuobjdump): loads, reciprocals, conversions (I2F, F2I,
+     FRND), PRMT, LDS, stores and local memory, with zncc.cu's tap loop
+     held to one 32-bit source word (one 16-byte quad on float sources),
+     one MUFU.RCP and no conversion or local memory per (hypothesis, tap)
+     at every K, each ablation mode's tap loop to what it removes, and
+     geom.cu's view loop to 6 MUFU.RCP per (hypothesis, view), its stores
+     (one 16-byte store per four views where V is a multiple of 4) and no
+     local memory; (9c) on that field and on phase 6's random K=8 field,
+     each mode of csrc/ablate.cu against its plain version (full and
+     first bitwise equal to zncc.cu K=8, f32take bitwise equal to full
+     and to zncc.cu's float instantiation, nobounds at the ZNCC bar,
+     noext and noscan within 1e-5 (1 + |x|)), timed at its own occupancy
+     and at full's blocks per SM, zncc.cu K=8 timed in turns against
+     `first` (it must beat it here too), and the decomposition of
+     zncc.cu K=8 printed (gather = full - noscan, bilinear, centring and
+     moments = full - noext, per-tap placement = full - nobounds, f32
+     quads against 8-bit words = f32take - full) beside each mode's
+     tap-loop instructions at the card's issue rate;
   10. (run after 8b) the rest of the CLI and the DTU method grid, through
      acmmp_tpu_torch.cli.main: make-synthetic --relief (MADE_VIEWS views
      at 320x240) byte-equal to the library call, the grid's 49-view
@@ -167,6 +179,8 @@ CUDA device or when the acmmp_tpu_torch package is not beside it.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import filecmp
 import json
@@ -212,7 +226,7 @@ GEOM_TPU_KERNEL = "acmmp_tpu/ops/pallas_geom.py:49"
 # IEEE divisions (one MUFU.RCP each) per (hypothesis, view) in geom.cu's
 # view loop: two projections and a world point
 GEOM_RCP_PER_VIEW = 6
-# zncc.cu K=8 over its first design (csrc/ablate.cu `full`), timed in
+# zncc.cu K=8 over its first design (csrc/ablate.cu `first`), timed in
 # turns on phase 6's random field and on phase 9's converged one before
 # the kernel took a second source type (PERF.md, Findings); the 8-bit
 # instantiation must stay within 1% of these
@@ -260,12 +274,17 @@ FUSED_MEDIAN_BAR, FUSED_SHARE_BAR, FUSED_MIN_VIEW_SHARE = 0.005, 0.99, 0.25
 # probes (csrc/probes.cu), with the TPU kernels they replace. FP32
 # operations per (hypothesis, view, tap, pixel) of each ablation mode, from
 # the tally in csrc/ablate.cu's source note, and the bytes per source pixel
-# each reads (none in noscan, f32 words in f32take)
+# each reads (the first design's bytes, 2x2 words, none in noscan, 2x2 f32
+# quads in f32take)
 ABLATE_TPU_KERNEL = "tools/prop_ablate.py:97"
-ABLATE_OPS_PER_TAP_EVAL = {"full": 41, "noext": 26, "nobounds": 18,
-                           "noscan": 41, "f32take": 41}
-ABLATE_SRC_BYTES = {"full": 1, "noext": 1, "nobounds": 1, "noscan": 0,
-                    "f32take": 4}
+ABLATE_OPS_PER_TAP_EVAL = {"first": 41, "full": 41, "noext": 26,
+                           "nobounds": 24, "noscan": 41, "f32take": 41}
+ABLATE_SRC_BYTES = {"first": 1, "full": 4, "noext": 4, "nobounds": 4,
+                    "noscan": 0, "f32take": 16}
+# the modes of zncc.cu's current design (one thread per (pixel,
+# hypothesis)), timed again at full's blocks per SM; `first` is the first
+# design, with blocks of another size, timed at its own occupancy only
+ABLATE_CURRENT = ("full", "noext", "nobounds", "noscan", "f32take")
 # modes held to their plain version within 1e-5 (1 + |x|) at the shipped
 # params, where their costs are cost_max (up to noscan's leak); the others
 # at the ZNCC bar
@@ -283,20 +302,16 @@ ABLATE_CLOSE = ("noext", "noscan")
 # At least ABLATE_INFORMATIVE_MIN of the costs must be informative.
 ABLATE_EXPOSED_SHARE = 0.99
 ABLATE_INFORMATIVE_MIN = 0.2
-# Every mode is timed at its own occupancy and at 3 blocks of 128 threads
-# per SM, what the registers of full, f32take and nobounds (137-140) allow
-# and noext and noscan (123-128) exceed, so that a mode's saving is the
-# work it removed and not a fourth block. The kernel uses no shared
-# memory; a launch asks for (bytes of dynamic shared memory, carveout
-# preference in percent or -1 for the driver's): 64 KB per block (1 KB
-# more reserved) fits 3 blocks in an SM's 228 KB and not 4 at any
-# carveout, leaving at most 60 KB of L1; 20 KB under a 28% carveout (64
-# KB) fits 3 and not 4 with about 192 KB of L1, if the driver keeps the
-# preference. `full` at its own occupancy against these shows what the
-# smaller L1 costs it.
-ABLATE_EQUAL_BLOCKS = 3
-ABLATE_EQUAL_OCCUPANCY = (("smem 64 KB", 64 * 1024, -1),
-                          ("smem 20 KB, carveout 28%", 20 * 1024, 28))
+# Every mode is timed at its own occupancy, and each mode of the current
+# design again at full's blocks per SM, so that a mode's saving is the
+# work it removed and not another block per SM: the launch asks for the
+# least dynamic shared memory (the staged taps and weights, 9,504 bytes
+# at 36 taps, or more) at which the occupancy calculator gives no mode
+# more blocks than full's. `full` at its own occupancy against that shows
+# what the pin costs it.
+# the H100's issue rate: each SM sub-partition's scheduler issues one warp
+# instruction per cycle, four per SM
+WARP_ISSUE_PER_SM_CYCLE = 4
 ABLATE_SHAPE = (1600, 1184, 8)      # the tool's defaults: width, height, views
 PROBE_TPU_KERNEL = {"taa_i32_axis1": "tools/mosaic_probe.py:36",
                     "taa_i32_axis0": "tools/mosaic_probe.py:53",
@@ -1723,14 +1738,15 @@ def sass_counts(instrs):
     return c
 
 
-def sass_report(lib, pattern):
+def sass_report(lib, pattern, marker=r"MUFU\.RCP"):
     """{function name: {"all": counts, "loop": counts, "tap": counts,
     "tap_loops": n}} for every kernel in `lib` whose name matches
     `pattern`, from its SASS (cuobjdump, where the toolkit has it; None
     where it does not); counts as sass_counts. "loop" counts only the
     instructions between a backward branch and its target, every loop of
-    the kernel (the hypothesis loops are unrolled); "tap" only the loops
-    that hold a MUFU.RCP (the tap loop: the staging loops hold none), of
+    the kernel (the hypothesis loops are unrolled); "tap" only the
+    innermost loops that hold an instruction matching `marker` (the tap
+    loop: by default a MUFU.RCP, which the staging loops hold none of), of
     which there are "tap_loops"; None where there is no such loop."""
     import re
 
@@ -1767,8 +1783,17 @@ def sass_report(lib, pattern):
             return [ins for addr, ins in instrs
                     if any(lo <= addr <= hi for lo, hi in spans)]
 
-        taps = [span for span in loops
-                if any("MUFU.RCP" in ins for ins in within([span]))]
+        # an instruction under the never-true predicate @!PT (the LDS
+        # placeholders beside each cp.async) is never issued
+        marked = [span for span in loops
+                  if any(re.search(marker, ins) and not ins.startswith("@!PT")
+                         for ins in within([span]))]
+        # the innermost: a span that holds another marked span is an outer
+        # loop, or a block nvcc placed after the tap loop that branches
+        # back over it
+        taps = [s for s in marked
+                if not any(o != s and s[0] <= o[0] and o[1] <= s[1]
+                           for o in marked)]
         out[name] = {"all": sass_counts(i for _, i in instrs),
                      "loop": sass_counts(within(loops)) if loops else None,
                      "tap": sass_counts(within(taps)) if taps else None,
@@ -1785,18 +1810,19 @@ def sass_line(c):
 
 
 def ab_time(label, first, new, reps=20, what="zncc.cu K=8", must_beat=True,
-            ratio_bar=None):
-    """A redesigned kernel (`new`) against its first design (`first`) on
-    one field, timed in turns (first, new, new, first), each turn `reps`
-    launches between CUDA events after a warm-up. With `must_beat` the
-    new design must be the faster in every turn; with `ratio_bar` the
-    ratio of the means must not exceed it. Returns (first ms, new ms),
-    the means of their two turns."""
+            ratio_bar=None, base="its first design", old_name="first"):
+    """A redesigned kernel (`new`) against its first design (`first`, or
+    what `base` names; the log calls it `old_name`) on one field, timed
+    in turns (first, new, new, first), each turn `reps` launches between
+    CUDA events after a warm-up. With `must_beat` the new design must be
+    the faster in every turn; with `ratio_bar` the ratio of the means
+    must not exceed it. Returns (first ms, new ms), the means of their
+    two turns."""
     t = {"first": [], "new": []}
     for name in ("first", "new", "new", "first"):
         t[name].append(time_ms(first if name == "first" else new, reps))
     f, n = statistics.fmean(t["first"]), statistics.fmean(t["new"])
-    log(f"  {what} against its first design, {label}: first "
+    log(f"  {what} against {base}, {label}: {old_name} "
         f"{[round(x, 4) for x in t['first']]} ms, new "
         f"{[round(x, 4) for x in t['new']]} ms; means {f:.4f} and {n:.4f} "
         f"ms, ratio {n / f:.4f}"
@@ -1808,14 +1834,35 @@ def ab_time(label, first, new, reps=20, what="zncc.cu K=8", must_beat=True,
     return f, n
 
 
+def build_against(tree):
+    """csrc/zncc.cu of the checkout at `tree`, built with this checkout's
+    nvcc flags into build/torch_kernels/against/ and bound as
+    cuda_ncc.bind does; and its SASS report (None without cuobjdump)."""
+    from acmmp_tpu_torch.kernels import _build
+    from acmmp_tpu_torch.ops import cuda_ncc
+
+    src = pathlib.Path(tree) / "acmmp_tpu_torch" / "csrc" / "zncc.cu"
+    out = _build.BUILD_DIR / "against" / "libzncc.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True, text=True)
+    return (cuda_ncc.bind(ctypes.CDLL(str(out))),
+            sass_report(out, "zncc_kernel"))
+
+
 def ablate_mode_of(fn_name):
-    """The ablation mode of a mangled ablate_kernel<8, Mode, Src> name."""
+    """The ablation mode of a mangled first_kernel<8, Src> or
+    ablate_kernel<Mode, Src> name ("first f32" for the first design on
+    float sources)."""
     import re
 
-    m = re.search(r"ModeE(\d)E([hf])E", fn_name)
+    m = re.search(r"first_kernelILi8E([hf])E", fn_name)
+    if m:
+        return "first" if m.group(1) == "h" else "first f32"
+    m = re.search(r"ModeE(\d)E(j|6float4)E", fn_name)
     if not m:
         return fn_name
-    if m.group(2) == "f":
+    if m.group(2) == "6float4":
         return "f32take"
     return ("full", "noext", "nobounds", "noscan")[int(m.group(1))]
 
@@ -1835,29 +1882,109 @@ def ptxas_registers(text):
     return regs
 
 
+def time_device_ms(fn, reps=100, sleep_ms=30.0):
+    """Device ms per call of `fn`: one warm-up, then `reps` calls queued
+    behind a torch.cuda._sleep of about `sleep_ms`, so that the host has
+    issued them all before the card reaches the first, between two CUDA
+    events; the card then runs them back to back, and the host's time per
+    call (time_ms) is taken out. Raises if the host had not issued them
+    all within the sleep. Returns (device ms per call, host ms per call
+    to issue them)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    cycles = int(sleep_ms * 1e-3 * sm_clock_hz())
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    # the host was done issuing before the sleep ended: the event a has
+    # not completed yet
+    assert not a.query(), ("the host took longer than the sleep",
+                           host_ms, sleep_ms)
+    b.synchronize()
+    return a.elapsed_time(b) / reps, host_ms / reps
+
+
+_SM_CLOCK = []
+
+
+def sm_clock_hz():
+    """The card's highest SM clock in Hz, as nvidia-smi reports it."""
+    if not _SM_CLOCK:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout
+        _SM_CLOCK.append(float(out.strip().splitlines()[0]) * 1e6)
+    return _SM_CLOCK[0]
+
+
 def log_decomposition(label, t):
-    """Print the shares of the first design of zncc.cu K=8 (csrc/ablate.cu
-    `full`) that the ablation times `t` (ms by mode) attribute to each
-    part of its work."""
+    """Print the shares of zncc.cu K=8 (csrc/ablate.cu `full`) that the
+    ablation times `t` (ms by mode) attribute to each part of its tap
+    loop."""
     full = t["full"]
-    parts = (("loads (full - noscan)", full - t["noscan"]),
-             ("bilinear and moments (full - noext)", full - t["noext"]),
+    parts = (("gather (full - noscan)", full - t["noscan"]),
+             ("bilinear, centring and moments (full - noext)",
+              full - t["noext"]),
              ("per-tap placement (full - nobounds)", full - t["nobounds"]),
-             ("u8 against f32 reads (f32take - full)", t["f32take"] - full))
-    log(f"  decomposition of the first design of zncc.cu K=8 ({label}): "
-        f"full {full:.4f} ms; "
+             ("f32 quads against 8-bit words (f32take - full)",
+              t["f32take"] - full))
+    log(f"  decomposition of zncc.cu K=8 ({label}): full {full:.4f} ms; "
         + "; ".join(f"{n} {d:.4f} ms = {d / full:.3f}" for n, d in parts))
 
 
-def ablation_on_field(label, params, inp, planes, off, errs, time_plain):
+def issue_report(label, t, per_tap, evals):
+    """Print, for each mode, the tap loop's SASS instructions per
+    (hypothesis, tap) (`per_tap`), the ms they need at the card's issue
+    rate for `evals` (hypothesis, view, tap, pixel) evaluations, and that
+    over the measured ms `t`: near 1 the tap loop is issue-bound, well
+    under 1 it waits on latency."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * WARP_ISSUE_PER_SM_CYCLE * sm_clock_hz()
+    parts = []
+    for m, ms in t.items():
+        issue_ms = per_tap[m] * evals / 32 / rate * 1e3
+        parts.append(f"{m} {per_tap[m]:g} per tap, {issue_ms:.4f} ms = "
+                     f"{issue_ms / ms:.3f} of {ms:.4f}")
+    log(f"  issue rate ({label}; {sms} SMs x {WARP_ISSUE_PER_SM_CYCLE} warp "
+        f"instructions a cycle at {sm_clock_hz() / 1e9:.3f} GHz): "
+        + "; ".join(parts))
+
+
+def pin_smem(cuda_ablate, T, target):
+    """The least dynamic shared memory (bytes, in steps of 256) at which
+    the occupancy calculator gives no mode of the current design more
+    than `target` blocks per SM, and the blocks of each mode there."""
+    for smem in range(0, 228 * 1024, 256):
+        blocks = {m: cuda_ablate.occupancy(m, T, smem)[0]
+                  for m in ABLATE_CURRENT}
+        if max(blocks.values()) <= target:
+            return smem, blocks
+    raise AssertionError(("no shared memory pins the modes", target))
+
+
+def ablation_on_field(label, params, inp, planes, off, errs, time_plain,
+                      per_tap):
     """Phase 9c on one K = 8 packed field: every mode against its plain
-    version (the bars above; under ops/ablate.EXPOSING too), `full` (the
-    first design of zncc.cu, frozen as the redesign's bitwise and timing
-    yardstick) bitwise to zncc.cu and f32take bitwise to `full`, each mode
-    timed at its own occupancy and at each of ABLATE_EQUAL_OCCUPANCY,
-    zncc.cu timed in turns against `full`, and the decompositions
-    printed. Adds each mode's largest |difference| at the
-    shipped params into `errs`. Returns ({(setting, mode): (ms, bound ms,
+    version (the bars above; under ops/ablate.EXPOSING too); `full` and
+    `first` (the first design of zncc.cu, frozen as its yardstick) bitwise
+    to zncc.cu, f32take bitwise to full and to zncc.cu's float
+    instantiation on the widened sources; each mode timed at its own
+    occupancy, and each mode of the current design again at full's
+    blocks per SM; zncc.cu timed in
+    turns against `first`; the decompositions and the issue-rate report
+    (from `per_tap`, each mode's tap-loop instructions per (hypothesis,
+    tap)) printed. Adds each mode's largest |difference| at the shipped
+    params into `errs`. Returns ({(setting, mode): (ms, bound ms,
     bound_by) or (ms,)}, {mode: plain ms} when `time_plain`)."""
     import torch
 
@@ -1876,14 +2003,22 @@ def ablation_on_field(label, params, inp, planes, off, errs, time_plain):
     zncc = cuda_ncc.multiview_zncc_cuda(
         inp.ref_img, inp.src_imgs, fvg, planes, params, row_pack_off=off,
         n_views=nv, prep=prep.zncc)
-    full_bitwise = bool(torch.equal(got["full"], zncc))
-    f32_bitwise = bool(torch.equal(got["f32take"], got["full"]))
-    log(f"  full (first design) == zncc.cu K=8 bitwise {full_bitwise}; "
-        f"f32take == full "
-        f"bitwise {f32_bitwise}")
-    assert full_bitwise and f32_bitwise, label
-    # the sources the kernel reads, for the plain version under EXPOSING
+    # zncc.cu's float instantiation on the widened 8-bit sources: the
+    # same 2x2 quads as f32take's
     u8_src = ablate.widen_sources(inp.src_imgs)
+    fparams = dataclasses.replace(params, ncc_src_u8=False)
+    fprep = cuda_ncc.prepare(inp.ref_img, u8_src, fvg, fparams, off)
+    zncc_f = cuda_ncc.multiview_zncc_cuda(
+        inp.ref_img, u8_src, fvg, planes, fparams, row_pack_off=off,
+        n_views=nv, prep=fprep)
+    same = {"full == zncc.cu K=8": torch.equal(got["full"], zncc),
+            "first == zncc.cu K=8": torch.equal(got["first"], zncc),
+            "f32take == full": torch.equal(got["f32take"], got["full"]),
+            "f32take == zncc.cu K=8 float instantiation": torch.equal(
+                got["f32take"], zncc_f)}
+    log("  bitwise: " + ", ".join(f"{k} {v}" for k, v in same.items()))
+    assert all(same.values()), (label, same)
+    del fprep, zncc_f
     times, plain_ms = {}, {}
     for m in ablate.MODES:
         want = ablate.ablate_packed(m, inp.ref_img, inp.src_imgs, fvg,
@@ -1928,55 +2063,97 @@ def ablation_on_field(label, params, inp, planes, off, errs, time_plain):
         if time_plain:
             plain_ms[m] = time_ms(lambda m=m: ablate.ablate_packed(
                 m, inp.ref_img, inp.src_imgs, fvg, planes, params, off), 1)
+        blocks, threads = cuda_ablate.occupancy(m, T)
         log(f"  {m}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{cuda_ablate.occupancy(m)} blocks per SM"
+            f"{blocks} blocks of {threads} threads per SM"
             + (f", plain {plain_ms[m]:.3f} ms" if time_plain else ""))
     field = "converged" if label.startswith("converged") else "random"
     ab_time(label, lambda: cuda_ablate.ablate_cuda(
-        "full", planes, prep, params, nv),
+        "first", planes, prep, params, nv),
         lambda: cuda_ncc.multiview_zncc_cuda(
             inp.ref_img, inp.src_imgs, fvg, planes, params, row_pack_off=off,
             n_views=nv, prep=prep.zncc),
         ratio_bar=ZNCC_U8_RATIO_PR5[field] * ZNCC_U8_RATIO_SLACK)
-    log_decomposition(f"{label}, own occupancy",
-                      {m: times[("own", m)][0] for m in ablate.MODES})
-    for name, smem, carve in ABLATE_EQUAL_OCCUPANCY:
-        blocks = {m: cuda_ablate.occupancy(m, smem, carve)
-                  for m in ablate.MODES}
-        for m in ablate.MODES:
-            def kern(m=m):
-                return cuda_ablate.ablate_cuda(m, planes, prep, params, nv,
-                                               smem, carve)
+    own = {m: times[("own", m)][0] for m in ablate.MODES}
+    log_decomposition(f"{label}, own occupancy", own)
+    evals = 8 * nv * T * Hg * W
+    issue_report(f"{label}, own occupancy", own, per_tap, evals)
+    target, _ = cuda_ablate.occupancy("full", T)
+    smem, blocks = pin_smem(cuda_ablate, T, target)
+    name = f"pinned, {smem} B of shared memory"
+    for m in ABLATE_CURRENT:
+        def kern(m=m):
+            return cuda_ablate.ablate_cuda(m, planes, prep, params, nv, smem)
 
-            # the launch's shared memory changes no bit of what it computes
-            assert torch.equal(kern(), got[m]), (label, name, m)
-            times[(name, m)] = (time_ms(kern, 20),)
-        log(f"  at {name}: blocks per SM by the occupancy calculator "
-            f"{blocks}; ms " + ", ".join(
-                f"{m} {times[(name, m)][0]:.4f}" for m in ablate.MODES))
-        if carve < 0:
-            assert set(blocks.values()) == {ABLATE_EQUAL_BLOCKS}, blocks
-        log_decomposition(f"{label}, {name}",
-                          {m: times[(name, m)][0] for m in ablate.MODES})
+        # the launch's shared memory changes no bit of what it computes
+        assert torch.equal(kern(), got[m]), (label, name, m)
+        times[(name, m)] = (time_ms(kern, 20),)
+    log(f"  at {name}: blocks per SM by the occupancy calculator {blocks} "
+        f"(full's own {target}); ms " + ", ".join(
+            f"{m} {times[(name, m)][0]:.4f}" for m in ABLATE_CURRENT))
+    assert set(blocks.values()) == {target}, blocks
+    pinned = {m: times[(name, m)][0] for m in ABLATE_CURRENT}
+    log_decomposition(f"{label}, {name}", pinned)
+    issue_report(f"{label}, {name}", pinned, per_tap, evals)
     return times, plain_ms
+
+
+def ablation_sass(sass, zsass):
+    """Phase 9d's checks on csrc/ablate.cu's tap loops: each mode removed
+    what it claims and nvcc nothing more. Returns each mode's tap-loop
+    SASS instructions per (hypothesis, tap), and holds full's tap loop to
+    zncc.cu K=8's, class by class."""
+    from acmmp_tpu_torch.ops import ablate
+
+    tap = {ablate_mode_of(n): c["tap"] for n, c in sass.items()}
+    assert sorted(tap) == sorted(ablate.MODES + ("first f32",)), tap
+    for n, c in sass.items():
+        assert c["tap_loops"] == 1 and c["tap"] is not None, (n, c)
+        assert c["all"]["local"] == 0, (n, c["all"])
+    first = tap.pop("first")
+    tap.pop("first f32")
+    # the first design: 8 hypotheses a tap (nvcc may unroll the taps), a
+    # reciprocal and four byte gathers each
+    assert first["ldg_u8"] == 4 * first["rcp"] > 0, first
+    # the current design's modes: one (hypothesis, tap) per iteration, no
+    # conversion instruction; full's word, f32take's quad, no gather in
+    # noscan, no reciprocal in nobounds, the byte selects wherever a word
+    # is unpacked
+    for m, t in tap.items():
+        assert t["i2f"] == t["f2i"] == t["frnd"] == 0, (m, t)
+        assert t["ldg"] == (0 if m == "noscan" else 1), (m, t)
+        assert t["ldg128"] == (1 if m == "f32take" else 0), (m, t)
+        assert t["rcp"] == (0 if m == "nobounds" else 1), (m, t)
+        assert t["prmt"] == (0 if m == "f32take" else 4), (m, t)
+    (ztap,) = [c["tap"] for n, c in zsass.items()
+               if "zncc_kernelILi8EjLb0E" in n]
+    log(f"phase 9d: ablate.cu full's tap loop against zncc.cu K=8's (8-bit "
+        f"sources, one view): {tap['full']['ins']} and {ztap['ins']} "
+        f"instructions; the same counts in every class "
+        f"{tap['full'] == ztap}")
+    # full stands for zncc.cu K=8 in the decomposition
+    assert tap["full"] == ztap, (tap["full"], ztap)
+    per_tap = {m: t["ins"] for m, t in tap.items()}
+    per_tap["first"] = first["ins"] / first["rcp"]
+    return per_tap
 
 
 def run_ablation_phase(dev, big, random8):
     """Phase 9: the lane probes, then the ZNCC cost decomposition. The
     probes are held bitwise to their plain versions on the card and to
     numpy, on the probe tool's words and nan_take_probe's adversarial
-    ones, and timed beside torch.gather / torch.where. The tool's fields
-    are built at its defaults (1600x1184, 8 sources) and its main path
-    (nan_take_probe, then every mode timed; then mosaic_probe) runs with
-    the launch counts reset. Then on the tool's converged field and on
-    phase 6's random K = 8 field (`random8`, packed at off0 = 0 on the
-    scene `big`) each mode is held to its plain version, `full` (the
-    first design of zncc.cu) bitwise to zncc.cu and f32take bitwise to
-    `full`, each mode is timed at its own occupancy and at 3 blocks per
-    SM, zncc.cu in turns against `full`, and the decompositions of the
-    first design printed (ablation_on_field); last, each mode's and each
-    zncc.cu K's registers and SASS counts, zncc.cu's tap loop held to its
-    design. Returns the JSON rows of the modes and the probes."""
+    ones, and timed beside torch.gather /
+    torch.where: device time per launch (queued behind a sleep) and time
+    per call (back to back). The tool's fields are built at its defaults
+    (1600x1184, 8 sources) and its main path (nan_take_probe, then every
+    mode timed; then mosaic_probe) runs with the launch counts reset.
+    Then each mode's and each zncc.cu K's registers and SASS counts, the
+    tap loops held to their designs (9d). Then on the tool's converged
+    field and on phase 6's random K = 8 field (`random8`, packed at off0
+    = 0 on the scene `big`) each mode is held to its plain version and
+    timed, zncc.cu in turns against `first`, and the decompositions of
+    zncc.cu K=8 printed (ablation_on_field). Returns the JSON rows of the
+    modes and the probes."""
     import torch
 
     from acmmp_tpu_torch.kernels import _build
@@ -2025,17 +2202,38 @@ def run_ablation_phase(dev, big, random8):
             on_dev["sel"], torch.gather(on_dev["w"], 1, idx64), on_dev["w"]),
         "take_select_f32": lambda: torch.where(
             on_dev["sel"], torch.gather(wf, 1, idx64), wf)}
+    def call_ms(fn):
+        # the host's time per call varies from run to run: the median of
+        # three runs of 200 calls
+        return statistics.median(time_ms(fn, 200) for _ in range(3))
+
+    # every call path warm before the first is timed
+    for name in probes.PROBES:
+        args = [on_dev[a] for a in ("w",) + cuda_probes.ARGS[name]]
+        for _ in range(200):
+            cuda_probes.probe_cuda(name, *args)
+    torch.cuda.synchronize()
     probe_times = {}
     for name in probes.PROBES:
         args = [on_dev[a] for a in ("w",) + cuda_probes.ARGS[name]]
-        ms = time_ms(lambda: cuda_probes.probe_cuda(name, *args), 200)
-        plain_ms = time_ms(lambda: probes.PLAIN[name](*args), 200)
-        lib_ms = (time_ms(library[name], 200) if name in library else None)
+        kern = lambda: cuda_probes.probe_cuda(name, *args)   # noqa: E731
+        dev_ms, issue_ms = time_device_ms(kern)
+        kern_ms = call_ms(kern)
+        plain_ms = call_ms(lambda: probes.PLAIN[name](*args))
+        lib_dev = lib_call = None
+        if name in library:
+            lib_dev, _ = time_device_ms(library[name])
+            lib_call = call_ms(library[name])
         nbytes = sum(on_dev[a].numel() * on_dev[a].element_size()
                      for a in ("w",) + cuda_probes.ARGS[name]) + 8 * 128 * 4
-        probe_times[name] = (ms, plain_ms, lib_ms, nbytes)
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+        probe_times[name] = (dev_ms, kern_ms, plain_ms, lib_dev, lib_call,
+                             nbytes)
+        lib = ("none" if lib_dev is None else
+               f"device {lib_dev * 1e3:.2f} us, per call "
+               f"{lib_call * 1e3:.2f} us")
+        log(f"  {name}: kernel device {dev_ms * 1e3:.2f} us, per call "
+            f"{kern_ms * 1e3:.2f} us (host issue {issue_ms * 1e3:.2f} us), "
+            f"plain per call {plain_ms * 1e3:.2f} us, library {lib}, "
             f"{nbytes} bytes")
 
     # ---- 9b: the tool's fields and its main path, counted ----
@@ -2058,33 +2256,23 @@ def run_ablation_phase(dev, big, random8):
     assert all(v > 0 for v in ablate_counts.values()), ablate_counts
     assert all(v > 0 for v in probe_counts.values()), probe_counts
 
-    # ---- 9c: each mode against its plain version, timed, on two fields ----
-    params, inputs, vg, cand, off0 = fields
-    field_sets = (("converged relief field", inputs, cand, off0),
-                  ("phase 6 random field", big, random8, 0))
-    errs = {m: 0.0 for m in ablate.MODES}
-    mode_times = {}
-    for label, inp, planes, off in field_sets:
-        converged = label.startswith("converged")
-        times, plain_ms = ablation_on_field(label, params, inp, planes, off,
-                                            errs, converged)
-        if converged:
-            mode_times = {m: (times[("own", m)], plain_ms[m])
-                          for m in ablate.MODES}
-
     # ---- 9d: what each mode and each zncc.cu K compiled to ----
     import re
 
+    params, inputs, vg, cand, off0 = fields
+    T = len(params.tap_offsets) ** 2
     regs = ptxas_registers(_build.BUILD_LOG.get("ablate", ""))
     for fn_name, r in sorted(regs.items()):
-        if "ablate_kernel" in fn_name:
-            # 128-thread blocks an SM holds by registers: 65,536 of them,
-            # allocated per warp in units of 256
-            per_block = 4 * -(-r * 32 // 256) * 256
-            blocks = min(65536 // per_block, 16)
-            log(f"phase 9d: {ablate_mode_of(fn_name)}: {r} registers, "
-                f"{blocks} blocks ({4 * blocks} warps) per SM by registers")
-    sass = sass_report(_build._target("ablate"), "ablate_kernel")
+        mode = ablate_mode_of(fn_name)
+        if mode in ablate.MODES:
+            blocks, threads = cuda_ablate.occupancy(mode, T)
+            log(f"phase 9d: {mode}: {r} registers, {blocks} blocks of "
+                f"{threads} threads ({blocks * threads // 32} warps) per SM "
+                f"(occupancy calculator, {T} taps)")
+    # the current design's tap loop reads its taps from shared memory, the
+    # first design's holds the reciprocals; the staging loops hold neither
+    sass = sass_report(_build._target("ablate"), "first_kernel|ablate_kernel",
+                       marker=r"\bLDS\b|MUFU\.RCP")
     zsass = sass_report(_build._target("zncc"), "zncc_kernel")
     gsass = sass_report(_build._target("geom"), "geom_kernelI")
     # the SASS counts are the check that each ablation removed what it
@@ -2096,10 +2284,10 @@ def run_ablation_phase(dev, big, random8):
     # every K on both source types, for one view and for a batch
     assert len(zsass) == 4 * len(cuda_ncc.SUPPORTED_K), sorted(zsass)
     for fn_name, c in sorted(sass.items()):
-        loop = ("no backward branch found" if c["loop"] is None
-                else sass_line(c["loop"]))
+        loop = ("no tap loop found" if c["tap"] is None
+                else sass_line(c["tap"]))
         log(f"phase 9d: {ablate_mode_of(fn_name)}: SASS {sass_line(c['all'])}"
-            f"; in its loops: {loop}")
+            f"; in its tap loop: {loop}")
     for fn_name, c in sorted(zsass.items()):
         m = re.search(r"zncc_kernelILi(\d+)E(j|6float4)Lb([01])E", fn_name)
         assert m, fn_name
@@ -2147,22 +2335,22 @@ def run_ablation_phase(dev, big, random8):
         assert t["stg"] == 1 and t["stg128"] == (1 if vec4 else 0), (
             fn_name, t)
         assert c["all"]["local"] == 0, (fn_name, c["all"])
-    # each ablation removed what it claims from its tap loop, and nvcc
-    # removed nothing more: the same byte loads in full, noext and
-    # nobounds, none in noscan (nor anywhere in it), f32 words instead in
-    # f32take; the same reciprocals but in nobounds, which has none
-    loop = {ablate_mode_of(n): c["loop"] for n, c in sass.items()}
-    assert sorted(loop) == sorted(ablate.MODES), loop
-    assert all(v is not None for v in loop.values()), loop
-    ldg, u8, rcp = ({m: v[key] for m, v in loop.items()}
-                    for key in ("ldg", "ldg_u8", "rcp"))
-    assert u8["full"] == u8["noext"] == u8["nobounds"] > 0, loop
-    assert u8["noscan"] == u8["f32take"] == 0, loop
-    assert ldg["f32take"] == ldg["full"], loop
-    assert rcp["full"] == rcp["noext"] == rcp["noscan"] == rcp[
-        "f32take"] > 0 == rcp["nobounds"], loop
-    assert [c["all"]["ldg_u8"] for n, c in sass.items()
-            if ablate_mode_of(n) == "noscan"] == [0], sass
+    per_tap = ablation_sass(sass, zsass)
+    log(f"phase 9d: tap-loop SASS instructions per (hypothesis, tap): "
+        f"{per_tap}")
+
+    # ---- 9c: each mode against its plain version, timed, on two fields ----
+    field_sets = (("converged relief field", inputs, cand, off0),
+                  ("phase 6 random field", big, random8, 0))
+    errs = {m: 0.0 for m in ablate.MODES}
+    mode_times = {}
+    for label, inp, planes, off in field_sets:
+        converged = label.startswith("converged")
+        times, plain_ms = ablation_on_field(label, params, inp, planes, off,
+                                            errs, converged, per_tap)
+        if converged:
+            mode_times = {m: (times[("own", m)], plain_ms[m])
+                          for m in ablate.MODES}
 
     for m in ablate.MODES:
         (ms, b_ms, b_by), plain_ms = mode_times[m]
@@ -2173,15 +2361,19 @@ def run_ablation_phase(dev, big, random8):
             "max_abs_err": errs[m], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     for name in probes.PROBES:
-        ms, plain_ms, lib_ms, nbytes = probe_times[name]
+        dev_ms, kern_ms, plain_ms, lib_dev, lib_call, nbytes = \
+            probe_times[name]
+        # ms and library_ms: time per call, as in every earlier line;
+        # device_ms and library_device_ms: the card's time per launch
         rows.append({
             "name": f"probe_{name}", "route": "cuda",
             "source": "acmmp_tpu_torch/csrc/probes.cu",
             "replaces": PROBE_TPU_KERNEL[name],
             "launches": probe_counts[name],
-            "max_abs_err": float(probe_err[name]), "ms": ms,
+            "max_abs_err": float(probe_err[name]), "ms": kern_ms,
             "plain_ms": plain_ms, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": lib_ms})
+            "bound_by": "bytes", "library_ms": lib_call,
+            "device_ms": dev_ms, "library_device_ms": lib_dev})
     return rows
 
 
@@ -2534,7 +2726,12 @@ def run_fullscale_phase(work, dev):
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python3 chip_smoke.py")
+    ap.add_argument("--against", metavar="TREE",
+                    help="another checkout whose csrc/zncc.cu phase 6 "
+                         "times in turns against this one's")
+    opts = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2573,6 +2770,24 @@ def main() -> int:
     t0 = time.perf_counter()
     names = _build.all_kernels()
     _build.build(names)
+    against = None
+    if opts.against:
+        against, other_sass = build_against(opts.against)
+        this_sass = sass_report(_build._target("zncc"), "zncc_kernel")
+        if other_sass is None:
+            log(f"--against {opts.against}: no cuobjdump, SASS not compared")
+        else:
+            # the same instantiations, tap loops class by class (a mangled
+            # name holds its file's anonymous namespace: from zncc_kernel on)
+            def by_kernel(rep):
+                return {n[n.index("zncc_kernel"):]: c for n, c in rep.items()}
+
+            this_sass, other_sass = by_kernel(this_sass), by_kernel(other_sass)
+            assert sorted(other_sass) == sorted(this_sass)
+            for fn_name, c in sorted(this_sass.items()):
+                assert c["tap"] == other_sass[fn_name]["tap"], fn_name
+            log(f"--against {opts.against}: zncc.cu's tap loops equal in "
+                f"every SASS class, {len(this_sass)} instantiations")
     log(f"phase 2: built {names} in {time.perf_counter() - t0:.2f} s")
     for name, text in _build.BUILD_LOG.items():
         log(f"nvcc {name}:\n{text.strip()}")
@@ -2626,7 +2841,7 @@ def main() -> int:
     def compare(inputs, planes, off0, label, origin=None, kparams=params):
         """Kernel vs plain on the same inputs; K-stack vs K=1 launches; a
         packed K=8 stack also bitwise against the kernel's first design
-        (csrc/ablate.cu `full`, or `f32take` on float sources). On 8-bit
+        (csrc/ablate.cu `first`, on 8-bit or float sources). On 8-bit
         sources the float-source instantiation, fed the same u8-valued
         floats, must give the 8-bit one's bits."""
         f32 = not kparams.ncc_src_u8
@@ -2666,15 +2881,15 @@ def main() -> int:
                 aprep = cuda_ablate.AblatePrep(
                     cuda_ncc.prepare(inputs.ref_img, inputs.src_imgs, vg,
                                      kparams, off0),
-                    inputs.src_imgs.contiguous())
-                mode = "f32take"
+                    inputs.src_imgs.contiguous(), None)
             else:
                 aprep = cuda_ablate.prepare(inputs.ref_img, inputs.src_imgs,
                                             vg, kparams, off0)
-                mode = "full"
             same = bool(torch.equal(
-                cuda_ablate.ablate_cuda(mode, pk, aprep, kparams, nv), got))
-            extra += f" == first design ({mode}) {same}"
+                cuda_ablate.ablate_cuda("first", pk, aprep, kparams, nv),
+                got))
+            extra += (f" == first design ({'f32' if f32 else '8-bit'} "
+                      f"sources) {same}")
             assert same, label
         if not f32:
             same = bool(torch.equal(run(f_params, pk), got))
@@ -3199,6 +3414,18 @@ def main() -> int:
 
             ms = time_ms(kern, 20)
             plain_ms = time_ms(plain, 2)
+            if against is not None and label == "1600x1184" and kind == "u8":
+                def other(K=K, off0=off0, planes=planes):
+                    return cuda_ncc.multiview_zncc_cuda(
+                        inputs.ref_img, inputs.src_imgs, vg, planes, kparams,
+                        row_pack_off=off0, n_views=nv, prep=preps[off0],
+                        lib=against)
+
+                assert torch.equal(other(), kern()), K
+                ab_time(f"{label} random field", other, kern,
+                        what=f"zncc.cu K={K}", must_beat=False,
+                        ratio_bar=1.01, base=opts.against,
+                        old_name="that")
             b_ms, b_by, evals = bound(inputs, K, Hg, W, src_bytes)
             table[(label, kind, K)] = (ms, plain_ms, b_ms, b_by)
             log(f"  {label} K={K} {kind} sources grid {Hg}x{W} views {nv}: "
@@ -3210,8 +3437,9 @@ def main() -> int:
                 aprep = cuda_ablate.prepare(inputs.ref_img, inputs.src_imgs,
                                             vg, params, off0)
                 ab_time("phase 6 random field, 1600x1184",
-                        lambda: cuda_ablate.ablate_cuda("full", planes, aprep,
-                                                        params, nv), kern,
+                        lambda: cuda_ablate.ablate_cuda("first", planes,
+                                                        aprep, params, nv),
+                        kern,
                         ratio_bar=ZNCC_U8_RATIO_PR5["random"]
                         * ZNCC_U8_RATIO_SLACK)
                 del aprep

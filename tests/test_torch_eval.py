@@ -148,14 +148,16 @@ def test_holm_and_paired_tests_match_jax():
 
 
 def test_fullscale_quality_tool_on_cpu(tmp_path, capsys):
-    """The tool end to end at 96x64 / 3 views on the CPU: the JAX tool's
-    keys, a cloud, and metrics equal to the JAX package's dtu_metrics of
-    the same PLY against the JAX ground truth of the same rig."""
+    """The tool end to end at 96x64 / 3 views on the CPU, with one
+    geometric pass (--geom_iters 1; the tool's path is the same at 2): the
+    JAX tool's keys, a cloud, and metrics equal to the JAX package's
+    dtu_metrics of the same PLY against the JAX ground truth of the same
+    rig."""
     out = str(tmp_path / "q.json")
     res = fullscale_quality.main([
         "--width", "96", "--height", "64", "--views", "3",
-        "--device", "cpu", "--dense", str(tmp_path / "dense"),
-        "--out", out])
+        "--geom_iters", "1", "--device", "cpu", "--dense",
+        str(tmp_path / "dense"), "--out", out])
     with open(out) as f:
         assert json.load(f) == res
     assert res["device"] == "cpu" and res["shape"] == "96x64"

@@ -18,8 +18,8 @@ and the port's plain photometric solve of the relief scene with float
 sources at tests/test_relief.py's bars. The kernel runs only on a card:
 the cuda-marked test holds it to the plain version at the ZNCC bar, K-
 stacks bitwise to K=1 launches, the float4 instantiation bitwise to the
-8-bit one on u8-valued floats and to csrc/ablate.cu's f32take (the
-kernel's first design on f32 sources). JAX is imported only where it is
+8-bit one on u8-valued floats and to csrc/ablate.cu's `first` on f32
+sources (the kernel's first design). JAX is imported only where it is
 installed, so that the card test also runs without it:
 `python -m pytest --noconftest -m cuda tests/test_torch_float_sources.py`."""
 
@@ -300,7 +300,8 @@ def test_float_source_kernel_on_card():
                 # the first design on the same f32 sources
                 zp = cuda_ncc.prepare(inp.ref_img, inp.src_imgs, vg, TF,
                                       off0)
-                aprep = cuda_ablate.AblatePrep(zp, inp.src_imgs.contiguous())
+                aprep = cuda_ablate.AblatePrep(
+                    zp, inp.src_imgs.contiguous(), None)
                 assert torch.equal(got, cuda_ablate.ablate_cuda(
-                    "f32take", pk, aprep, TF, 3)), label
+                    "first", pk, aprep, TF, 3)), label
         assert float(got.min()) < TF.cost_max     # informative costs

@@ -5,12 +5,15 @@ One run of the port's `run_pipeline` on a 4-view 64x48 textured-plane
 dense folder with patch_size=7 and size_bound=32, so that the schedule has
 two scales (32x24, then JBU to 64x48 and the hierarchy pass): 32 solves
 (each view's first solve, its planar-prior second solve where the
-triangulation gives a prior, and two geometric solves, per scale). The
-tests then check its disk layout and fused cloud, its resume, one
+triangulation gives a prior, and two geometric solves, per scale), on the
+default sequential executor. The tests then check its disk layout and
+fused cloud, the JAX package's fusion of its checkpoints, its resume, one
 geometric pass (the JAX package's `process_problem`, the port's
 `process_batch` of one view) on copies of its checkpoints (the bar of
 tests/test_torch_geom_solve.py: 97% of interior depths within 1%), and
-the CLI, whose `reconstruct --view_batch 2` runs the batched executor."""
+the CLI's errors and flags. The batched executor's solves are held per
+view to the sequential ones by tests/test_torch_batched.py, and its
+pipeline by tests/test_torch_mesh_pipeline.py."""
 
 import dataclasses
 import glob
@@ -172,14 +175,13 @@ def test_geometric_pass_agrees_with_jax(run, tmp_path):
     assert share >= SHARE_WITHIN_1PCT, share
 
 
-def test_cli_friendly_errors(tmp_path, run, monkeypatch):
+def test_cli_friendly_errors(tmp_path, run, monkeypatch, capsys):
     """A missing or non-dense folder exits 2 (tests/test_pipeline.py::
     test_cli_friendly_error_on_missing_folder); --mesh asks for the
     visible CUDA devices and raises without one (no quiet CPU mesh);
-    `reconstruct --view_batch 2` runs the batched executor on
-    the file's 64x48 folder (the CLI's default params: one scale), its
-    cloud meets the bars of test_pipeline_layout_and_cloud, and the JAX
-    package's fusion of its checkpoints writes its PLY bytes."""
+    `reconstruct --view_batch 2` hands run_pipeline the batched executor's
+    config (the CLI's default params, one scale) and prints the PLY it
+    returns."""
     for cmd in ("reconstruct", "fuse"):
         with pytest.raises(SystemExit) as e:
             main([cmd, str(tmp_path / "nope")])
@@ -191,22 +193,19 @@ def test_cli_friendly_errors(tmp_path, run, monkeypatch):
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["reconstruct", run[0], "--mesh"])
-    dense = str(tmp_path / "s")
-    shutil.copytree(run[0], dense, ignore=shutil.ignore_patterns("ACMMP"))
-    assert main(["reconstruct", dense, "--view_batch", "2", "--device",
+    calls = []
+
+    def run_pipeline(dense, cfg, device=None, mesh=None):
+        calls.append((dense, cfg, device, mesh))
+        return run[1]
+
+    monkeypatch.setattr(tsched, "run_pipeline", run_pipeline)
+    capsys.readouterr()
+    assert main(["reconstruct", run[0], "--view_batch", "2", "--device",
                  "cpu", "--num_consistent_thresh", "2"]) == 0
-    out = os.path.join(dense, "ACMMP")
-    markers = glob.glob(os.path.join(out, "2333_*", ".pass_*.json"))
-    assert len(markers) == 3 * N_VIEWS, markers
-    ply = os.path.join(out, "ACMMP_model.ply")
-    pts, _, _ = read_ply(ply)
-    assert len(pts) > 100, len(pts)
-    err = np.abs(pts[:, 2] - run[2])
-    assert np.median(err) < 0.1, np.median(err)
-    assert (err < 0.5).mean() > 0.9
-    jply = jax_run_fusion(dense, out, jsched.generate_sample_list(dense),
-                          geom_consistency=True,
-                          fp=JaxFusionParams(num_consistent_thresh=2),
-                          ply_name="jax.ply")
-    with open(jply, "rb") as f, open(ply, "rb") as g:
-        assert f.read() == g.read()
+    assert capsys.readouterr().out.strip().splitlines()[-1] == run[1]
+    ((dense, cfg, device, mesh),) = calls
+    assert (dense, device, mesh) == (run[0], "cpu", None)
+    assert cfg.view_batch == 2 and cfg.fusion.num_consistent_thresh == 2
+    # the CLI's default params: one scale
+    assert cfg.patchmatch == PatchMatchParams()

@@ -7,23 +7,29 @@ tools/mosaic_probe.py runs its probes when it is imported, so its four
 kernel bodies are restated here from mosaic_probe.py:36-55, and
 nan_take_probe's two from prop_ablate.py:451-458; each runs through
 pl.pallas_call under pltpu.force_tpu_interpret_mode(). The kernels of
-csrc/probes.cu run only on a card (the cuda-marked test, chip_smoke.py
-phase 9)."""
+csrc/probes.cu run only on a card (the cuda-marked tests, chip_smoke.py
+phase 9); JAX is imported only where it is installed, so that they also
+run without it: `python -m pytest --noconftest -m cuda
+tests/test_torch_probes.py`."""
 
 import importlib
 import io
 import contextlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from acmmp_tpu_torch.ops import cuda_probes, probes
 from acmmp_tpu_torch.tools import mosaic_probe, prop_ablate
+
+try:
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+except ImportError:      # a card machine without JAX: the card tests only
+    jax = None
 
 torch.set_num_threads(1)
 
@@ -65,12 +71,12 @@ def k_f32(w_ref, i_ref, s_ref, o_ref):
 
 # each probe: its Pallas kernel, output dtype and argument names
 CASES = {
-    "taa_i32_axis1": (k_taa_i32, jnp.int32, ("w", "idx")),
-    "taa_i32_axis0": (k_taa_axis0_i32, jnp.int32, ("w", "idx")),
-    "dyn_lane_shift": (k_dyn_shift, jnp.float32, ("w", "sh")),
-    "unpack4_static": (k_unpack, jnp.float32, ("w",)),
-    "take_select_i32": (k_i32, jnp.int32, ("w", "idx", "sel")),
-    "take_select_f32": (k_f32, jnp.int32, ("w", "idx", "sel")),
+    "taa_i32_axis1": (k_taa_i32, np.int32, ("w", "idx")),
+    "taa_i32_axis0": (k_taa_axis0_i32, np.int32, ("w", "idx")),
+    "dyn_lane_shift": (k_dyn_shift, np.float32, ("w", "sh")),
+    "unpack4_static": (k_unpack, np.float32, ("w",)),
+    "take_select_i32": (k_i32, np.int32, ("w", "idx", "sel")),
+    "take_select_f32": (k_f32, np.int32, ("w", "idx", "sel")),
 }
 
 
@@ -166,3 +172,4 @@ def test_probe_kernels_match_plain_on_card():
             want = probes.run(name, *cpu)
             assert torch.equal(got.view(torch.int32),
                                want.view(torch.int32)), (name, kind)
+

@@ -12,7 +12,7 @@ sx_max and 10^5 seeded values in [0, 3200); the whole read emulated both
 ways (bytes with floorf, words with the identities), bitwise equal, and
 held to the JAX package's bilinear_sample on the same 8-bit image. The
 kernel itself runs only on a card: the cuda-marked test holds it bitwise
-to csrc/ablate.cu's `full` (the kernel's first design) and K-stacks to
+to csrc/ablate.cu's `first` (the kernel's first design) and K-stacks to
 K = 1 launches at 128x32 / 3 views. JAX is imported only by the test
 that uses it, so that the card test also runs where JAX is not installed:
 `python -m pytest --noconftest -m cuda tests/test_torch_zncc_layout.py`."""
@@ -32,15 +32,17 @@ from acmmp_tpu_torch.utils.synth import textured_plane_scene
 
 torch.set_num_threads(1)
 
-ZNCC_CU = (pathlib.Path(__file__).resolve().parents[1] / "acmmp_tpu_torch"
-           / "csrc" / "zncc.cu").read_text()
+# the tap code of csrc/zncc.cu, which it shares with csrc/ablate.cu
+ZNCC_TAP = (pathlib.Path(__file__).resolve().parents[1] / "acmmp_tpu_torch"
+            / "csrc" / "zncc_tap.cuh").read_text()
 TWO23 = np.float32(2.0 ** 23)
 
 
 def _cu_constant(name):
-    """An integer constant of csrc/zncc.cu, so that the emulation below
-    uses the kernel's own selector and bit pattern."""
-    m = re.search(rf"\b{name} = (0x[0-9A-Fa-f]+);", ZNCC_CU)
+    """An integer constant of csrc/zncc.cu's tap code (zncc_tap.cuh), so
+    that the emulation below uses the kernel's own selector and bit
+    pattern."""
+    m = re.search(rf"\b{name} = (0x[0-9A-Fa-f]+);", ZNCC_TAP)
     assert m, name
     return int(m.group(1), 16)
 
@@ -302,7 +304,7 @@ def test_kernel_bitwise_to_first_design_on_card():
             row_pack_off=off0, prep=aprep.zncc)
 
     got = zncc(cand)
-    assert torch.equal(got, cuda_ablate.ablate_cuda("full", cand, aprep,
+    assert torch.equal(got, cuda_ablate.ablate_cuda("first", cand, aprep,
                                                     params))
     singles = [zncc(cand[k:k + 1]) for k in range(8)]
     assert torch.equal(torch.cat(singles), got)
