@@ -16,7 +16,11 @@ ops/sample.py, the hand-written CUDA kernel on CUDA tensors: one launch
 per reference view with sources in plain fusion (4 channels), two in the
 prior-aware fusion (one per reference candidate, 8 channels).
 
-Two rules the JAX program gets from XLA and the port states itself:
+Three rules the JAX program gets from XLA and the port states itself:
+  * the camera products, the reprojection error, the angle and the
+    dynamic score round as XLA:CPU rounds the compiled JAX program on a
+    host with FMA (core/fused_math.py), so both packages take the same
+    accept decisions from the same checkpoints;
   * a projection that is NaN or infinite is out of bounds: its lanes are
     invalid and no integer is formed from them (torch and CUDA convert
     NaN to an integer differently);
@@ -49,6 +53,7 @@ import torch
 
 from acmmp_tpu_torch import runtime
 from acmmp_tpu_torch.config import FusionParams
+from acmmp_tpu_torch.core import fused_math as fm
 from acmmp_tpu_torch.core import geometry as geo
 from acmmp_tpu_torch.io import read_dmb, write_ply
 from acmmp_tpu_torch.io.dense_folder import (
@@ -71,6 +76,31 @@ def _per_view(cams: geo.Camera) -> geo.Camera:
                         for f in dataclasses.fields(geo.Camera)))
 
 
+# The camera math of fusion rounds as the JAX package's compiled fusion
+# program does on the CPU (core/fused_math.py): each 3x3 product is a chain
+# of fused multiply-adds, the translations and divisions are rounded
+# apart. The solver's camera math (core/geometry.py) is not touched.
+
+def _world_point(cam: geo.Camera, x, y, depth) -> torch.Tensor:
+    """geometry.world_point: R^T (backproject(x, y, depth) - t)."""
+    X = geo.backproject(cam, x, y, depth) - cam.t
+    return fm.matvec(cam.R.transpose(-1, -2), X)
+
+
+def _project(cam: geo.Camera, X: torch.Tensor):
+    """geometry.project: (pixel xy, depth) of world points."""
+    h = fm.matvec(cam.K, fm.matvec(cam.R, X) + cam.t)
+    depth = h[..., 2]
+    return h[..., :2] / depth[..., None], depth
+
+
+def _angle(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """Angle between unit vectors, NaN-safe (GetAngle,
+    ACMMP.cpp:253-262)."""
+    ang = fm.acos(torch.clamp(fm.dot3(v1, v2), -1.0, 1.0))
+    return torch.where(torch.isnan(ang), 0.0, ang)
+
+
 def _project_index(src_cams: geo.Camera, Xw: torch.Tensor, Hs: int,
                    Ws: int):
     """Nearest source pixel of each reference pixel in each view: (rr, cc)
@@ -79,7 +109,7 @@ def _project_index(src_cams: geo.Camera, Xw: torch.Tensor, Hs: int,
     float, so a NaN or infinite projection is out of bounds and forms no
     integer; for finite ones this equals the JAX package's
     round-cast-compare-clip."""
-    uv, _ = geo.project(src_cams, Xw)
+    uv, _ = _project(src_cams, Xw)
     c = torch.floor(uv[..., 0] + 0.5)
     r = torch.floor(uv[..., 1] + 0.5)
     inb = (torch.isfinite(c) & torch.isfinite(r)
@@ -119,18 +149,19 @@ def _per_view_consistency(ref_cam, src_cams, recons, src_masks, Xw,
     for k in range(len(recons)):
         sdepth = smp[:, 4 * k]
         snormal = smp[:, 4 * k + 1:4 * k + 4].permute(0, 2, 3, 1)
-        Xs = geo.world_point(cams_v, cc.float(), rr.float(), sdepth)
-        buv, proj_depth = geo.project(ref_cam, Xs)
-        err = torch.sqrt((x - buv[..., 0]) ** 2 + (y - buv[..., 1]) ** 2)
+        Xs = _world_point(cams_v, cc.float(), rr.float(), sdepth)
+        buv, proj_depth = _project(ref_cam, Xs)
+        dx, dy = x - buv[..., 0], y - buv[..., 1]
+        err = fm.sqrt(fm.fma(dx, dx, dy * dy))
         rdd = (torch.abs(proj_depth - ref_depth)
                / torch.clamp(ref_depth, min=1e-12))
-        ang = geo.angle_between(ref_normal, snormal)
+        ang = _angle(ref_normal, snormal)
         ok = (inb & (sdepth > 0.0)
               & (err < fp.max_reproj_error)
               & (rdd < fp.max_relative_depth_diff)
               & (ang < fp.max_normal_angle))
-        dyn = torch.exp(-(err + fp.depth_diff_weight * rdd
-                          + fp.angle_weight * ang))
+        dyn = fm.exp(-fm.fma(ang, fp.angle_weight,
+                             fm.fma(rdd, fp.depth_diff_weight, err)))
         outs.append((ok, torch.where(ok, dyn, 0.0)))
     return outs, rr, cc
 
@@ -164,7 +195,7 @@ def _fuse_view_plain_parts(ref_depth, ref_normal, ref_mask, ref_cam,
     x, y = geo.pixel_grid(H, W, device=ref_depth.device)
     valid = ((~ref_mask) & (ref_depth > 0.0)
              & (ref_depth < ref_cam.depth_max))
-    Xw = geo.world_point(ref_cam, x, y, ref_depth)
+    Xw = _world_point(ref_cam, x, y, ref_depth)
     [(ok, dyn)], rr, cc = _per_view_consistency(
         ref_cam, src_cams, [(src_depths, src_normals)], src_masks, Xw,
         ref_depth, ref_normal, x, y, valid, fp,
@@ -198,7 +229,7 @@ def _fuse_view_dual_parts(ref_depth0, ref_normal0, ref_depth1, ref_normal1,
     v1 = (~ref_mask) & (ref_depth1 > 0.0)
 
     def score(ref_depth, ref_normal, rv):
-        Xw = geo.world_point(ref_cam, x, y, ref_depth)
+        Xw = _world_point(ref_cam, x, y, ref_depth)
         [(ok0, dyn0), (ok1, dyn1)], rr, cc = _per_view_consistency(
             ref_cam, src_cams,
             [(src_depths0, src_normals0), (src_depths1, src_normals1)],

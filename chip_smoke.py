@@ -136,7 +136,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
      launches by width (counted by its wrapper) adding up to its launches
      and C=8 in x2 and boost_1 only; then select-cams, eval-dtu --json
      and make-priors through the CLI equal to the grid's folder and the
-     library calls;
+     library calls; the plain variant's points on the 3-camera subset
+     are printed beside both packages' seed envelopes on the CPU;
   10b. fullscale_quality at its defaults (1280x960, 6 views, the default
      random law): its 12 metrics at FULLSCALE_BARS, its walls (the
      evaluation on a line of its own) and its launch counts;
@@ -341,6 +342,11 @@ GRID_VARIANTS = {"no_prior": ("ACMMP", "ACMMP_no_prior.ply"),
                  "boost_single": ("ACMMP_BOOST_SINGLE",
                                   "acmmp_boost_single.ply"),
                  "full_prior": ("ACMMP_full_prior", "ACMMP_full_prior.ply")}
+# the plain variant's fused points on the 3-camera subset at seeds 0-4 of
+# each package on the CPU (tools/torch_grid_witness.py --seeds 0,1,2,3,4;
+# PERF.md): phase 10 prints the card's count beside them
+GRID_CPU_SEEDS = {"port": (8239, 7187, 7853, 7166, 7057),
+                  "jax": (7253, 6576, 7230, 7210, 6989)}
 # phase 10b: fullscale_quality at its defaults (1280x960, 6 views, default
 # random law) held to about 0.8x round 5's default-law acc2 and cmp2
 # (0.4811, 0.4347; QUALITY_fullscale_r05.json) and 1.25x its acc_mean
@@ -2652,6 +2658,14 @@ def run_dtu_grid_phase(work, dev):
             assert (r["seeded"] > 0) == want_seeded, (variant, r)
             assert (r["sample"][8] > 0) == (variant in ("x2", "boost_1")), \
                 (variant, r)
+
+    n_plain = len(read_ply(os.path.join(
+        out_root, f"relief_{GRID_CAM_COUNTS[0]}_cam",
+        GRID_VARIANTS["no_prior"][1]))[0])
+    log(f"  plain variant, {GRID_CAM_COUNTS[0]} cams: {n_plain} points on "
+        f"the card (seed 0); on the CPU at seeds 0-4 (PERF.md): " + "; ".join(
+            f"{k} {min(v)}-{max(v)}, mean {sum(v) / len(v):.1f}"
+            for k, v in GRID_CPU_SEEDS.items()))
 
     # select-cams, eval-dtu --json and make-priors through the CLI against
     # what the grid made and the library calls
